@@ -21,15 +21,21 @@ any failure exits non-zero and prints no result line:
               beside the byte bound
   3. engine   CC, BFS (4 sources) and SSSP on the V = 2^20 identifier graph
               through ``LocalEngine.run`` with variant dense, fused and
-              frontier: byte-equal values, equal iteration counts, and the
-              fused runs launch the kernel once per superstep
+              frontier, and fused once more with ``use_kernels=False``
+              (the plain version on the card): byte-equal values, equal
+              iteration counts, the kernel's fused runs launch it once per
+              superstep and no other run launches it
   4. platform ``GraphPlatform`` on the V = 2^24 identifier graph (~130 M
               directed edges, the paper's "combined connected users"):
-              CC, CC count, PageRank, BFS and SSSP (64-hop bound), a repeat
-              CC served from the result cache; checked against scipy
+              CC, CC count, BFS and weighted SSSP (64-superstep bound), a
+              repeat CC served from the result cache, and PageRank on the
+              graph's unit-weight view; checked against scipy
 
-The line before the last is ``{"kernels": [...]}`` (launch counts from
-phases 3-4, the main path, and the kernel's numbers at the V = 2^24
+Both graphs carry random link weights from the seed, multiples of 1/4 in
+[1, 4]: float32 path sums are exact, so SSSP is checked exactly and a
+kernel that misreads ``w`` disagrees.  The line before the last is
+``{"kernels": [...]}`` (launch counts from phases 3-4, the main path, in
+total and per path, and the kernel's numbers at the V = 2^24
 connected-components shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -47,9 +53,10 @@ ROOT = Path(__file__).resolve().parent
 
 PHASE3_LOG2V = 20          # fits SUPERSTEP_ELL_BUDGET: fused/frontier run
 MAIN_LOG2V = 24            # the main-path graph (dense path: over budget)
-BFS_HOPS = 64              # hop bound of the phase-4 BFS/SSSP queries
+BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+PAGERANK_HALT_L1 = 1e-5    # PageRank halts when an iteration moves < this
 PAGERANK_L1_TOL = 1e-4
 TIMING_REPS = 10
 CALLS_PER_SAMPLE = 10
@@ -115,7 +122,10 @@ def max_abs_err(a, b) -> float:
 
 def identifier_graph(log2v: int, seed: int):
     """The combined-connected-users input: four identifier edge sets over
-    2^log2v users, symmetrized and deduplicated, on cuda:0."""
+    2^log2v users, symmetrized and deduplicated, on cuda:0, each link
+    weighted by a random multiple of 1/4 in [1, 4] (exact float32 path
+    sums; weights of at least 1 bound a shortest path's hops by its
+    length)."""
     import numpy as np
     from repro_torch.core import graph as G
     from repro_torch.data import synthetic
@@ -126,7 +136,9 @@ def identifier_graph(log2v: int, seed: int):
     src = np.concatenate([s for s, _ in sets])
     dst = np.concatenate([d for _, d in sets])
     del sets
-    coo = G.build_coo(src, dst, V, symmetrize=True)
+    rng = np.random.default_rng(seed + 1000)
+    w = (1.0 + rng.integers(0, 13, src.size) / 4.0).astype(np.float32)
+    coo = G.build_coo(src, dst, V, w=w, symmetrize=True)
     log(f"graph V=2^{log2v}={V} seed={seed}: {coo.n_edges} directed edges, "
         f"host build {time.perf_counter() - t0:.1f} s")
     return coo
@@ -271,22 +283,26 @@ def engine_phase(coo):
     from repro_torch.kernels.pregel_superstep import ops
     V = coo.n_vertices
     eng = LocalEngine(coo)
+    plain = LocalEngine(coo, use_kernels=False)   # parity: no kernel
     rows = []
     sources = tuple(i * V // 4 for i in range(4))
     for algo, params in (("connected_components", {}),
                          ("bfs", {"sources": sources}),
                          ("sssp", {"source": V // 3})):
         base = None
-        for variant in ("dense", "fused", "frontier"):
+        for label, e, variant in (("dense", eng, "dense"),
+                                  ("fused", eng, "fused"),
+                                  ("frontier", eng, "frontier"),
+                                  ("fused_plain", plain, "fused")):
             k0 = ops.KERNEL_LAUNCHES
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            r = eng.run(algo, params, variant=variant, profile=True)
+            r = e.run(algo, params, variant=variant)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched = ops.KERNEL_LAUNCHES - k0
-            realized = r.meta["superstep"]["variant"]
-            row = {"algo": algo, "variant": variant, "realized": realized,
+            realized = r.meta["realized_variant"]
+            row = {"algo": algo, "variant": label, "realized": realized,
                    "iterations": r.iterations, "wall_ms": wall * 1e3,
                    "ms_per_superstep": wall * 1e3 / max(r.iterations, 1),
                    "kernel_launches": launched}
@@ -294,57 +310,60 @@ def engine_phase(coo):
             log("engine " + json.dumps(row))
             if realized != variant:
                 fail(f"{algo}: variant {variant} fell back to {realized}")
-            if variant == "fused":
+            if label == "fused":
                 if launched < r.iterations or launched == 0:
                     fail(f"{algo}: fused run launched the kernel {launched} "
                          f"times in {r.iterations} supersteps")
             elif launched:
-                fail(f"{algo}: {variant} launched the fused kernel")
+                fail(f"{algo}: {label} launched the fused kernel")
             val = r.value.contiguous().view(torch.uint8)
             if base is None:
                 base = (val, r.iterations)
             elif not torch.equal(val, base[0]) or r.iterations != base[1]:
-                fail(f"{algo}: {variant} differs from dense")
+                fail(f"{algo}: {label} differs from dense")
     return rows
 
 
 # --------------------------------------------------------------- phase 4
 
 def platform_phase(coo):
-    import numpy as np
     import torch
+    from repro_torch.core import graph as G
     from repro_torch.core.query import GraphPlatform, GraphQuery
+    from repro_torch.kernels.pregel_superstep import ops
     V = coo.n_vertices
     plat = GraphPlatform(coo)
+    # PageRank folds 1/outdeg into the raw weights, so it is a probability
+    # iteration only on unit weights: it runs on the unit-weight view of
+    # the same edges (pads keep weight 0)
+    unit = GraphPlatform(G.GraphCOO(coo.src, coo.dst,
+                                    (coo.w > 0).to(torch.float32), V,
+                                    coo.n_edges, coo.symmetric))
     sources = tuple((i * V // 4 + 12345) % V for i in range(4))
     sssp_src = V // 3
     queries = [
-        ("cc", GraphQuery.connected_components()),
-        ("cc_count", GraphQuery.connected_components(count_only=True)),
-        ("pagerank", GraphQuery.pagerank()),
-        ("bfs", GraphQuery.bfs(sources, max_iters=BFS_HOPS)),
-        ("sssp", GraphQuery.sssp(sssp_src, max_iters=BFS_HOPS)),
-        ("cc_repeat", GraphQuery.connected_components()),
+        ("cc", plat, GraphQuery.connected_components()),
+        ("cc_count", plat, GraphQuery.connected_components(count_only=True)),
+        ("pagerank", unit, GraphQuery.pagerank(tol=PAGERANK_HALT_L1 / V)),
+        ("bfs", plat, GraphQuery.bfs(sources, max_iters=BFS_HOPS)),
+        ("sssp", plat, GraphQuery.sssp(sssp_src, max_iters=BFS_HOPS)),
+        ("cc_repeat", plat, GraphQuery.connected_components()),
     ]
     out, rows = {}, []
-    for name, q in queries:
-        plan = plat.plan(q)
+    for name, p, q in queries:
+        plan = p.plan(q)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        k0 = ops.KERNEL_LAUNCHES
         t0 = time.perf_counter()
-        r = plat.query(q)
+        r = p.query(q)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        eng = plat.local if plan.engine == "local" else plat.distributed
-        realized = plan.variant
-        if plan.variant not in (None, "dense"):
-            spec = _spec_of(q.algorithm)
-            if spec is not None and not eng.superstep_supported(
-                    spec, plan.variant):
-                realized = "dense"
         row = {"query": name, "wall_ms": wall * 1e3,
                "iterations": r.iterations, "engine": plan.engine,
-               "planned_variant": plan.variant, "realized_variant": realized,
+               "planned_variant": plan.variant,
+               "realized_variant": r.meta.get("realized_variant"),
+               "kernel_launches": ops.KERNEL_LAUNCHES - k0,
                "cache": r.meta.get("cache", "miss"),
                "max_memory_allocated_gb":
                    torch.cuda.max_memory_allocated() / 1e9}
@@ -357,27 +376,20 @@ def platform_phase(coo):
     return rows
 
 
-def _spec_of(algorithm):
-    import importlib
-    mods = {"connected_components": ("connected_components",
-                                     "_CC_SPEC_JUMP"),
-            "bfs": ("traversal", "_BFS_SPEC"),
-            "sssp": ("traversal", "_SSSP_SPEC")}
-    if algorithm not in mods:
-        return None
-    mod, attr = mods[algorithm]
-    return getattr(importlib.import_module(
-        f"repro_torch.core.algorithms.{mod}"), attr)
-
-
 def check_oracles(coo, out, sources, sssp_src):
     """Host oracles: scipy's connected components (reduced to min-id
-    labels) and depth-limited BFS are exact; PageRank is a float64 power
-    iteration of the same formulation for the same number of iterations,
-    compared in L1.  The port computes in float32 with atomics in another
-    order: per entry a relative error of order 1e-7 per superstep,
-    damped by alpha, so the L1 distance over ranks summing to 1 stays
-    near 1e-6; PAGERANK_L1_TOL = 1e-4 leaves two orders of margin."""
+    labels) and depth-limited BFS are exact.  SSSP is held to scipy's
+    Dijkstra over the same weights, limited to distance BFS_HOPS: every
+    weight is at least 1, so a vertex within that distance has a shortest
+    path of at most BFS_HOPS edges, which BFS_HOPS supersteps find
+    exactly (the weights are multiples of 1/4, so float32 sums are
+    exact); every other vertex must read more than BFS_HOPS.  PageRank
+    is a float64 power iteration of the same formulation for the same
+    number of iterations (tens, at the PAGERANK_HALT_L1 halt), compared
+    in L1.  The port computes in float32 with atomics in another order:
+    per entry a relative error of order 1e-7 per superstep, damped by
+    alpha, so the L1 distance over ranks summing to 1 stays near 1e-6;
+    PAGERANK_L1_TOL = 1e-4 leaves two orders of margin."""
     import numpy as np
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components, dijkstra
@@ -402,12 +414,22 @@ def check_oracles(coo, out, sources, sssp_src):
     if not np.array_equal(out["bfs"].value.cpu().numpy().astype(np.float64),
                           hop):
         fail("BFS distances differ from scipy's")
-    sp = dijkstra(m, directed=True, indices=sssp_src, limit=BFS_HOPS,
-                  min_only=True)
-    if not np.array_equal(out["sssp"].value.cpu().numpy().astype(np.float64),
-                          sp):
-        fail("SSSP distances differ from scipy's")
+    w = coo.w[: coo.n_edges].cpu().numpy().astype(np.float64)
+    sp = dijkstra(csr_matrix((w, (src, dst)), shape=(V, V)), directed=True,
+                  indices=sssp_src, limit=BFS_HOPS, min_only=True)
+    got = out["sssp"].value.cpu().numpy().astype(np.float64)
+    near = np.isfinite(sp)
+    if not np.array_equal(got[near], sp[near]):
+        fail("SSSP distances differ from scipy's Dijkstra")
+    if not np.all(got[~near] > BFS_HOPS):
+        fail(f"SSSP reads a distance of at most {BFS_HOPS} where scipy's "
+             f"Dijkstra finds none")
+    if near.sum() < 100 or not np.any(sp[near] != np.round(sp[near])):
+        fail("SSSP check holds too few weighted distances")
 
+    if out["pagerank"].iterations < 10:
+        fail(f"PageRank halted after {out['pagerank'].iterations} "
+             "iterations: its check would hold a near-uniform vector")
     alpha = 0.85
     outdeg = np.bincount(src, minlength=V).astype(np.float64)
     inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1.0), 0.0)
@@ -419,7 +441,7 @@ def check_oracles(coo, out, sources, sssp_src):
     l1 = float(np.abs(out["pagerank"].value.cpu().numpy() - x).sum())
     log(f"oracles: {ncomp} components, "
         f"{int(np.isfinite(hop).sum())} vertices within {BFS_HOPS} hops, "
-        f"pagerank L1 {l1:.3e} after {out['pagerank'].iterations} "
+        f"{int(near.sum())} within weighted distance {BFS_HOPS}, pagerank L1 {l1:.3e} after {out['pagerank'].iterations} "
         f"iterations (tolerance {PAGERANK_L1_TOL}), "
         f"{time.perf_counter() - t0:.1f} s")
     if not l1 <= PAGERANK_L1_TOL:
@@ -490,6 +512,13 @@ def main() -> int:
     launches = ops.KERNEL_LAUNCHES
     if launches == 0:
         fail("the main path never launched pregel_superstep")
+    by_path = {
+        f"LocalEngine.run V=2^{PHASE3_LOG2V}":
+            sum(r["kernel_launches"] for r in engine_rows),
+        f"GraphPlatform.query V=2^{MAIN_LOG2V}":
+            sum(r["kernel_launches"] for r in platform_rows)}
+    if sum(by_path.values()) != launches:
+        fail(f"launches by path {by_path} do not add up to {launches}")
 
     main_row = next(r for r in checks
                     if r["layout"] == f"in-ELL 2^{MAIN_LOG2V}"
@@ -503,7 +532,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
                   "superstep.cu",
         "replaces": "src/repro/kernels/pregel_superstep/kernel.py:43",
-        "launches": launches,
+        "launches": launches, "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in checks),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

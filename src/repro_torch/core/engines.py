@@ -44,7 +44,6 @@ from repro_torch.core.pregel import (
     run_pregel_fused,
 )
 from repro_torch.device import resolve_device
-from repro_torch.kernels.pregel_superstep import ops as superstep_ops
 from repro_torch.kernels.pregel_superstep.ref import as_dtype
 
 # Byte budget for the *uncapped* ELL layouts the fused/frontier superstep
@@ -117,6 +116,10 @@ class Engine:
         # here (under _exec_lock) and ``run_superstep`` appends one
         # counter dict per pregel execution it performs.
         self._profile_sink: Optional[list] = None
+        # Realized superstep variants of the current run(), in order:
+        # what ran after any precondition fallback (meta
+        # ['realized_variant'] reports the last).
+        self._realized: Optional[list] = None
         # Measurements are read by the *planner* path while a worker may
         # hold _exec_lock — a separate lock keeps submit latency flat.
         self._meta_lock = threading.Lock()
@@ -222,10 +225,9 @@ class Engine:
         state (no mesh, no model sharding), an elementwise single-monoid
         message, and an uncapped ELL within the byte budget; frontier
         additionally needs a declared (and matching) ``frontier_mode``.
-        Fused on the card also needs a message the kernel compiles (one
-        of ``kernels.pregel_superstep.ops.EDGE_PROGRAMS``) while kernels
-        are on; a spec without one takes the dense path, as the
-        reference's precondition fallback does.
+        These are the reference's preconditions and nothing more: a fused
+        run on the card whose message is not one of the kernel's compiled
+        edge programs reaches the kernel's wrapper and raises there.
         """
         if variant == "dense":
             return True
@@ -238,10 +240,6 @@ class Engine:
             return False
         V = self.coo.n_vertices
         if V == 0:
-            return False
-        if variant == "fused" and self.device.type == "cuda" \
-                and self.use_kernels \
-                and not superstep_ops.compiled(spec.message):
             return False
         if variant == "frontier":
             if spec.frontier_mode == "monotone":
@@ -264,15 +262,21 @@ class Engine:
         (``run_pregel`` — the correctness oracle).  ``'fused'`` runs the
         ELL-blocked fused kernel, ``'frontier'`` the packed active-list
         loop; both fall back to dense when ``superstep_supported`` says
-        no, so a planner-forced variant never errors and the variants
-        contract (identical results everywhere) holds unconditionally.
+        no, so a planner-forced variant never errors on the reference's
+        preconditions and the variants contract (identical results
+        everywhere) holds unconditionally.  On the card the fused
+        variant launches the CUDA kernel (``use_kernels=True``) or runs
+        the plain version on request (``False``); it never substitutes
+        one for the other.
         ``'auto'`` prefers frontier, then fused, then dense.
 
         ``init_active`` (optional ``bool [V]``) seeds the frontier
         variant's first active set — the incremental-maintenance seam.
 
-        With a profile sink installed (``run(profile=True)``), each
-        execution appends a superstep counter dict — realized variant,
+        Inside ``run`` the realized variant is reported as
+        ``meta['realized_variant']``.  With a profile sink installed
+        (``run(profile=True)``), each execution appends a superstep
+        counter dict — realized variant,
         iterations, halt step, message traffic, per-round frontier
         occupancy.  Results are identical either way.
         """
@@ -291,6 +295,7 @@ class Engine:
             state, iters = run_pregel_fused(
                 spec, ell, init_state[:V], max_iters,
                 use_kernels=self.use_kernels)
+            self._ran("fused")
             if sink is not None:
                 sink.append(self._superstep_profile(
                     "fused", spec, init_state, iters, max_iters,
@@ -300,6 +305,7 @@ class Engine:
             V = self.coo.n_vertices
             active = None if init_active is None else init_active[:V]
             ell = self.superstep_ell("out")
+            self._ran("frontier")
             if sink is None:
                 return run_pregel_frontier(
                     spec, ell, init_state[:V], max_iters,
@@ -323,11 +329,16 @@ class Engine:
             return state, iters
         state, iters = run_pregel(spec, self.sharded, init_state,
                                   max_iters, mesh=self.mesh)
+        self._ran("dense")
         if sink is not None:
             sink.append(self._superstep_profile(
                 "dense", spec, init_state, iters, max_iters,
                 slots_per_iter=int(self.coo.n_edges)))
         return state, iters
+
+    def _ran(self, variant: str) -> None:
+        if self._realized is not None:
+            self._realized.append(variant)
 
     def _superstep_profile(self, variant: str, spec: PregelSpec,
                            init_state, iters, max_iters: int,
@@ -432,6 +443,12 @@ class Engine:
         affect time, never correctness.  ``meta['mode']`` records the
         realized path ('incremental' | 'warm').
 
+        ``meta['realized_variant']`` is the superstep variant the last
+        vertex program dispatched by this engine actually ran ('dense' |
+        'fused' | 'frontier'), after any precondition fallback; absent
+        when none was (a result-cache hit, or a runner with a loop of its
+        own such as PageRank's power iteration).
+
         ``profile=True`` collects superstep counters from any pregel
         loop the execution runs and attaches the last (outermost)
         one as ``meta['superstep']``.
@@ -449,8 +466,10 @@ class Engine:
         mode = None
         count_fast = False
         sink = None
+        realized = None
         with self._exec_lock, self._device_scope():
             self.n_runs += 1
+            self._realized = []
             if profile:
                 self._profile_sink = []
             try:
@@ -479,6 +498,7 @@ class Engine:
                         value, iters = self._invoke(
                             defn.runner_for(variant), defn, p)
             finally:
+                realized, self._realized = self._realized, None
                 if profile:
                     sink, self._profile_sink = self._profile_sink, None
         if not count_fast:
@@ -490,6 +510,8 @@ class Engine:
                 meta["variant"] = variant
             if mode is not None:
                 meta["mode"] = mode
+        if realized:
+            meta["realized_variant"] = realized[-1]
         if sink:
             meta["superstep"] = sink[-1]
         return QueryResult(value, self.name, iters, meta)
@@ -521,6 +543,7 @@ class Engine:
             state, max_iters = defn.init(self, params)
             state, iters = run_pregel(runner, self.sharded, state,
                                       max_iters, mesh=self.mesh)
+            self._ran("dense")
             if self._profile_sink is not None:
                 self._profile_sink.append(self._superstep_profile(
                     "dense", runner, state, iters, max_iters,

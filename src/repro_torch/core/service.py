@@ -911,7 +911,7 @@ class GraphAnalyticsService:
         # re-key: accounting may have just materialized the pool
         # (residency-generation bump), and the entry must be findable
         # under the keys later lookups will compute
-        self._cache_put(self._result_key(ctx, q), r)
+        self._cache_put(self._result_key(ctx, q), self._strip_run_meta(r))
         return r
 
     def _account_transfer(self, ctx: GraphContext, plan: P.Plan,
@@ -1470,7 +1470,7 @@ class GraphAnalyticsService:
     def _result_attrs(r: QueryResult, wall: float) -> dict:
         """Execute-span annotations from what actually ran."""
         attrs = {"wall_s": wall, "iterations": r.iterations}
-        for k in ("variant", "mode"):
+        for k in ("variant", "realized_variant", "mode"):
             if k in r.meta:
                 attrs[k] = r.meta[k]
         if "superstep" in r.meta:
@@ -1481,10 +1481,10 @@ class GraphAnalyticsService:
     def _strip_run_meta(r: QueryResult,
                         also: Sequence[str] = ()) -> QueryResult:
         """The cacheable copy of a result: drop meta keys that describe
-        THIS execution (superstep counters, fusion shape) — a later
-        cache hit replaying them would claim an execution that never
-        happened for that caller."""
-        drop = {"superstep", *also}
+        THIS execution (superstep counters, realized variant, fusion
+        shape) — a later cache hit replaying them would claim an
+        execution that never happened for that caller."""
+        drop = {"superstep", "realized_variant", *also}
         if not (drop & r.meta.keys()):
             return r
         return dataclasses.replace(

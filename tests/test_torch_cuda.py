@@ -147,3 +147,43 @@ def test_platform_on_the_card_matches_the_cpu():
     err = (pr_cpu.value - pr_gpu.value.cpu()).abs().sum()
     assert float(err) <= 1e-6 * 3000
     assert abs(pr_cpu.iterations - pr_gpu.iterations) <= 1
+
+
+def test_fused_with_an_uncompiled_message_raises_on_the_card():
+    """The engine does not turn a fused request away for a message the
+    kernel does not compile: the wrapper raises, nothing runs dense."""
+    import dataclasses
+
+    from repro_torch.core.algorithms import traversal
+    eng = LocalEngine(_graph("cuda"))
+    adhoc = dataclasses.replace(traversal._BFS_SPEC,
+                                message=lambda d, w: d + 1.0)
+    assert eng.superstep_supported(adhoc, "fused")
+    init = torch.full((3000,), INF, device="cuda")
+    init[0] = 0.0
+    before = ops.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="compiled edge program"):
+        eng.run_superstep(adhoc, init, 3000, variant="fused")
+    assert ops.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("algo,params", [
+    ("connected_components", {}),
+    ("bfs", {"sources": (0, 1500)}),
+    ("sssp", {"source": 11}),
+])
+def test_plain_fused_on_the_card_matches_the_kernel(algo, params):
+    """use_kernels=False runs the plain version on the card (no launch)
+    and returns the kernel run's bytes and iteration count."""
+    g = _graph("cuda")
+    before = ops.KERNEL_LAUNCHES
+    plain = LocalEngine(g, use_kernels=False).run(algo, params,
+                                                  variant="fused")
+    assert ops.KERNEL_LAUNCHES == before
+    kern = LocalEngine(g).run(algo, params, variant="fused")
+    assert ops.KERNEL_LAUNCHES - before >= kern.iterations
+    assert plain.meta["realized_variant"] == "fused"
+    assert kern.meta["realized_variant"] == "fused"
+    assert torch.equal(plain.value.view(torch.uint8),
+                       kern.value.view(torch.uint8))
+    assert plain.iterations == kern.iterations

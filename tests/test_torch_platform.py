@@ -130,6 +130,28 @@ def test_repeat_query_is_a_result_cache_hit(graphs):
     assert tp.cache_stats == {"hits": 1, "misses": 1}
 
 
+@pytest.mark.parametrize("name", ["cc", "bfs", "sssp"])
+@pytest.mark.parametrize("budget", [None, 16])
+def test_realized_variant_is_reported(graphs, monkeypatch, name, budget):
+    """The result says which superstep variant actually ran: the planned
+    one within the uncapped-ELL budget, dense past it; a cache hit, which
+    ran nothing, reports none."""
+    from repro_torch.core import engines as E
+    if budget is not None:
+        monkeypatch.setattr(E, "SUPERSTEP_ELL_BUDGET", budget)
+    _, tg = graphs
+    tp = GraphPlatform(tg, device=CPU)
+    q = QUERIES[name](GraphQuery)
+    plan = tp.plan(q)
+    assert plan.variant in ("fused", "frontier")
+    first = tp.query(q)
+    want = plan.variant if budget is None else "dense"
+    assert first.meta["realized_variant"] == want
+    again = tp.query(q)
+    assert again.meta.get("cache") == "hit"
+    assert "realized_variant" not in again.meta
+
+
 def test_reloaded_snapshot_shares_the_cache(graphs):
     _, tg = graphs
     shared = OrderedDict()

@@ -257,6 +257,19 @@ def test_budget_fallback_is_exact(monkeypatch):
     for v in ("fused", "frontier"):
         r = eng.run("connected_components", {}, variant=v)
         assert _bits(r.value) == _bits(base.value)
+        assert r.meta["realized_variant"] == "dense"
+
+
+@pytest.mark.parametrize("algo,params", ALGOS)
+@pytest.mark.parametrize("variant", ["dense", "fused", "frontier"])
+def test_realized_variant_in_meta(algo, params, variant):
+    """Within the preconditions the forced variant is the one that ran,
+    and the result says so (the profile counters agree)."""
+    _, tg = _pair("random")
+    r = LocalEngine(tg, device=CPU).run(algo, params, variant=variant,
+                                        profile=True)
+    assert r.meta["realized_variant"] == variant
+    assert r.meta["superstep"]["variant"] == variant
 
 
 def test_unsupported_specs_fall_back_dense():
@@ -274,8 +287,9 @@ def test_unsupported_specs_fall_back_dense():
     assert not eng.superstep_supported(no_frontier, "frontier")
     with pytest.raises(ValueError):
         pregel.run_pregel_frontier(no_frontier, None, torch.zeros(4), 1)
-    # an uncompiled message is fine for fused on the CPU (the plain
-    # version runs any elementwise callable)
+    # an uncompiled message meets the fused preconditions: the plain
+    # version on the CPU runs any elementwise callable, and on the card
+    # the kernel's wrapper raises rather than the engine turning away
     adhoc = dataclasses.replace(ttr._BFS_SPEC, message=lambda d, w: d + 1.0)
     assert eng.superstep_supported(adhoc, "fused")
 
