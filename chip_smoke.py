@@ -6,37 +6,57 @@ Run from the root of a checkout, on a host with one CUDA card::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card, drives the port's main path
-(graph queries through ``LocalEngine.run`` and ``GraphPlatform.query``)
-and checks the answers against host oracles (scipy).  Phases, in order;
-any failure exits non-zero and prints no result line:
+against its plain PyTorch version on the card, drives the port's paths
+(graph queries through ``LocalEngine.run`` and ``GraphPlatform.query``,
+and ``LocalEngine._spmv``) and checks the answers against host oracles
+(scipy, numpy).  Phases, in order; any failure exits non-zero and prints
+no result line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
-  1. build    nvcc builds every kernel (seconds and ptxas' register report)
-  2. kernels  kernel vs plain version for every (state dtype, edge program,
-              monoid, channel dtype) the slice uses, on ragged shapes and on
-              the uncapped in-ELL layouts of the phase-3 and phase-4 graphs:
-              min/max bit-identical, float sums within rtol 1e-5; timed with
-              CUDA events (median of 10 samples of 10 back-to-back calls)
-              beside the byte bound
-  3. engine   CC, BFS (4 sources) and SSSP on the V = 2^20 identifier graph
-              through ``LocalEngine.run`` with variant dense, fused and
-              frontier, and fused once more with ``use_kernels=False``
-              (the plain version on the card): byte-equal values, equal
-              iteration counts, the kernel's fused runs launch it once per
-              superstep and no other run launches it
+  1. build    nvcc builds every kernel library, all at once (seconds and
+              ptxas' register report)
+  2. kernels  kernel vs plain version on the card:
+              pregel_superstep for every (state dtype, edge program,
+              monoid, channel dtype) the slice uses, on ragged shapes and
+              on the uncapped in-ELL layouts of the phase-3 and phase-4
+              graphs; ell_intersect on sorted row pairs (K = 1, ragged K,
+              K = 3000, all-sentinel and identical rows); ell_spmv
+              (ell_combine, which launches the superstep kernel) on ragged
+              shapes.  min/max and intersection counts bit-identical,
+              float sums within rtol 1e-5; timed with CUDA events (median
+              of 10 samples of 10 back-to-back calls; the plain versions
+              at the main-path shapes 3 samples of 1) beside the bound
+  3. engine   on the V = 2^20 identifier graph through ``LocalEngine.run``:
+              CC, BFS (4 sources), SSSP and k-core (k = 4) with variant
+              dense, fused and frontier, and fused once more with
+              ``use_kernels=False`` (the plain version on the card):
+              byte-equal values, equal iteration counts, the fused runs
+              launch pregel_superstep once per superstep and no other run
+              launches it; triangle counting (intersect: ell_intersect,
+              one launch) against scipy and k-core against its peeling
+              oracle; on the V = 2^14 graph the bitset variant equals the
+              intersect variant equals scipy
   4. platform ``GraphPlatform`` on the V = 2^24 identifier graph (~130 M
               directed edges, the paper's "combined connected users"):
               CC, CC count, BFS and weighted SSSP (64-superstep bound), a
-              repeat CC served from the result cache, and PageRank on the
-              graph's unit-weight view; checked against scipy
+              repeat CC served from the result cache, PageRank on the
+              graph's unit-weight view; then triangle count (planned
+              local/intersect, ell_intersect launched), k-core (k = 4)
+              and its size at k = 8, and degree statistics, each cold and
+              warm; checked against scipy and numpy oracles and the plain
+              intersect version on the card
+  5. spmv     ``LocalEngine._spmv`` (ell_spmv) sum/min/max over the
+              platform's degree-capped ELL (K = 128)
 
-Both graphs carry random link weights from the seed, multiples of 1/4 in
-[1, 4]: float32 path sums are exact, so SSSP is checked exactly and a
-kernel that misreads ``w`` disagrees.  The line before the last is
-``{"kernels": [...]}`` (launch counts from phases 3-4, the main path, in
-total and per path, and the kernel's numbers at the V = 2^24
-connected-components shape); the last line is
+Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
+``OrientedELL``, ell_spmv over the capped ELL) run after phases 4-5, on
+the platform's own derived state, and are timed there.  Every graph
+carries random link weights from the seed, multiples of 1/4 in [1, 4]:
+float32 path sums are exact, so SSSP is checked exactly and a kernel that
+misreads ``w`` disagrees.  Kernel launches are counted per path: every
+count is set to 0 just before a path runs and read just after.  The line
+before the last is ``{"kernels": [...]}`` (launches in total and per
+path, and each kernel's numbers at its main-path shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -45,6 +65,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -52,7 +73,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PHASE3_LOG2V = 20          # fits SUPERSTEP_ELL_BUDGET: fused/frontier run
+BITSET_LOG2V = 14          # bitset triangles: [E, V/32] words per edge
 MAIN_LOG2V = 24            # the main-path graph (dense path: over budget)
+KCORE_K = 4
+KCORE_K_COUNT = 8
 BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -203,12 +227,17 @@ def _ragged(v, k, gen):
     return nbr, mask, w
 
 
-def _bound(v, k, vx, prog_reads_w, x, out, program_adds):
+def _bound(mask, vx, prog_reads_w, x, out, program_adds):
     """Least time for the call on the card: bytes over memory rate vs
-    operations over the float32 rate; the larger bounds it."""
-    nbytes = v * k * (4 + 1 + (4 if prog_reads_w else 0)) \
+    operations over the float32 rate; the larger bounds it.  What this
+    data needs: the mask in full (it decides which slots are live), nbr
+    and, for the programs that read it, w at the live slots only, x and
+    the output once; one operation per live slot (two with an add)."""
+    v, k = mask.shape
+    live = int(mask.sum())
+    nbytes = v * k + live * (4 + (4 if prog_reads_w else 0)) \
         + x.element_size() * vx + out.element_size() * v
-    ops = v * k * (2 if program_adds else 1)
+    ops = live * (2 if program_adds else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -236,7 +265,7 @@ def check_kernel(label, nbr, mask, w, gen, timed, results):
                "ok": bool(ok), "max_abs_err": err}
         if timed:
             reads_w = msg in (ops.msg_src_plus_w, ops.msg_src_times_w)
-            bound, by = _bound(V, K, V, reads_w, x, got,
+            bound, by = _bound(mask, V, reads_w, x, got,
                                msg is not ops.msg_src)
             row.update(
                 ms=cuda_ms(lambda: ops.fused_superstep(nbr, mask, w, x,
@@ -275,12 +304,209 @@ def _library_spmv_ms(nbr, mask, w, x, want):
     return cuda_ms(lambda: torch.sparse.mm(a, xv))
 
 
+def _ids(rng, e, k, vx, fill=0.6):
+    """Random sorted, deduplicated, sentinel-padded rows (the
+    OrientedELL row invariant); sentinel == vx."""
+    import numpy as np
+    rows = np.full((e, k), vx, dtype=np.int32)
+    for i in range(e):
+        n = rng.integers(0, int(k * fill) + 1)
+        vals = rng.choice(vx, size=min(n, vx), replace=False)
+        vals.sort()
+        rows[i, : len(vals)] = vals
+    return rows
+
+
+def check_intersect_rows(results):
+    """ell_intersect on sorted row pairs: ragged shapes, K = 1, K past
+    the reference's 2048-slot VMEM bound, all-sentinel and identical
+    rows; exact equality with the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ell_intersect import ops as iops
+    from repro_torch.kernels.ell_intersect.ref import ell_intersect_plain
+    cases = []
+    for e, k, vx in ((16, 8, 40), (100, 37, 64), (256, 128, 500),
+                     (7, 200, 300), (64, 1, 10), (1000, 33, 2000),
+                     (40, 3000, 100000)):
+        rng = np.random.default_rng(e * k)
+        cases.append((f"rows {e}x{k}", _ids(rng, e, k, vx),
+                      _ids(rng, e, k, vx), vx))
+    sent = np.full((8, 16), 32, dtype=np.int32)
+    one = sent.copy()
+    one[0, :3] = [1, 5, 9]
+    cases.append(("all-sentinel rows", sent, one, 32))
+    same = np.tile(np.array([2, 3, 5, 7, 11, 100, 100, 100], np.int32),
+                   (8, 1))
+    cases.append(("identical rows", same, same.copy(), 100))
+    for label, a, b, vx in cases:
+        ta, tb = (torch.from_numpy(t).cuda() for t in (a, b))
+        got = iops.ell_intersect(ta, tb, vx)
+        torch.cuda.synchronize()
+        want = ell_intersect_plain(ta, tb, vx)
+        ok = torch.equal(got, want)
+        if label == "all-sentinel rows":
+            ok = ok and not bool(got.any())
+        if label == "identical rows":
+            ok = ok and bool((got == 5).all())
+        row = {"kernel": "ell_intersect", "layout": label,
+               "K": int(a.shape[1]), "ok": bool(ok),
+               "max_abs_err": max_abs_err(got, want),
+               "total": int(want.sum())}
+        results.append(row)
+        log("kernel " + json.dumps(row))
+        if not ok:
+            fail(f"ell_intersect disagrees with its plain version: {row}")
+
+
+def _plain_by_rows(fn, nbr, mask, w, x, op, rows=1 << 21):
+    """The plain version over row blocks (rows are independent), so its
+    [V, K] temporaries stay a few GB at the main-path shape."""
+    import torch
+    return torch.cat([fn(nbr[i:i + rows], mask[i:i + rows], w[i:i + rows],
+                         x, op=op) for i in range(0, nbr.shape[0], rows)])
+
+
+def check_combine(label, nbr, mask, w, x, timed, results, path_out=None):
+    """ell_spmv (the superstep kernel) vs ell_combine_plain for sum, min
+    and max on one layout; ``path_out`` (op -> output) holds what a path
+    computed on the same inputs, which must be the same bytes."""
+    import torch
+    from repro_torch.kernels.ell_combine import ops as cops
+    from repro_torch.kernels.ell_combine.ref import ell_combine_plain
+    V, K = nbr.shape
+    for op in ("sum", "min", "max"):
+        got = cops.ell_spmv(nbr, mask, w, x, op=op)
+        torch.cuda.synchronize()
+        want = _plain_by_rows(ell_combine_plain, nbr, mask, w, x, op)
+        if op == "sum":
+            ok = torch.allclose(got, want, rtol=1e-5, atol=0.0)
+        else:
+            ok = bits_equal(got, want)
+        if path_out is not None:
+            ok = ok and bits_equal(path_out[op], got)
+        row = {"kernel": "ell_combine", "layout": label, "op": op, "V": V,
+               "K": K, "ok": bool(ok), "max_abs_err": max_abs_err(got, want)}
+        if timed:
+            bound, by = _bound(mask, V, op == "sum", x, got, op == "sum")
+            row.update(
+                ms=cuda_ms(lambda: cops.ell_spmv(nbr, mask, w, x, op=op)),
+                plain_ms=cuda_ms(lambda: _plain_by_rows(
+                    ell_combine_plain, nbr, mask, w, x, op), reps=3,
+                    calls=1, warmup=1),
+                bound_ms=bound, bound_by=by, library_ms=None)
+            if op == "sum":
+                row["library_ms"] = _library_spmv_ms(nbr, mask, w, x, want)
+            else:
+                row["library"] = ("n/a: no single PyTorch call computes a "
+                                  "masked ELL row min/max")
+        results.append(row)
+        log("kernel " + json.dumps(row))
+        if not ok:
+            fail(f"ell_spmv disagrees with its plain version: {row}")
+
+
+def check_intersect_main(o, results):
+    """ell_intersect_counts over the main-path OrientedELL: kernel vs
+    plain exactly, timed, beside its bounds."""
+    import torch
+    from repro_torch.kernels.ell_intersect import ops as iops
+    from repro_torch.kernels.ell_intersect.ref import \
+        ell_intersect_counts_plain
+    got = iops.ell_intersect_counts(o)
+    torch.cuda.synchronize()
+    want = ell_intersect_counts_plain(o)
+    ok = torch.equal(got, want)
+    V, (rows, K) = o.n_vertices, o.nbr.shape
+    E = int(o.eu.shape[0])
+    lengths = (o.nbr < V).sum(dim=1)
+    # What this data needs: eu, ev read and c written once (12 B per
+    # padded edge) and each row's valid ids plus the sentinel that ends it
+    # (the kernel's length search reads at most that); a merge of the two
+    # rows makes len(u) + len(v) integer comparisons per edge, counted at
+    # the card's non-tensor float32 rate.  Beside it: nbr read in full,
+    # and with each edge's two K-slot rows gathered from device memory
+    # (nbr, ~1 GB at V = 2^24, exceeds the 50 MB L2).
+    nbytes = 12 * E + 4 * int((lengths + (lengths < K)).sum())
+    full_bytes = 12 * E + 4 * rows * K
+    ops = int((lengths[o.eu.long()] + lengths[o.ev.long()]).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    row = {"kernel": "ell_intersect", "layout": f"OrientedELL 2^{MAIN_LOG2V}",
+           "V": V, "K": K, "padded_edges": E, "edges": o.n_edges,
+           "mean_fill": float(lengths[:V].double().mean()),
+           "ok": bool(ok), "max_abs_err": max_abs_err(got, want),
+           "total": int(want.sum(dtype=torch.int64)),
+           "ms": cuda_ms(lambda: iops.ell_intersect_counts(o)),
+           "plain_ms": cuda_ms(lambda: ell_intersect_counts_plain(o),
+                               reps=3, calls=1, warmup=1),
+           "bound_ms": bound, "bound_by": by,
+           "full_nbr_bound_ms": full_bytes / HBM_BYTES_PER_S * 1e3,
+           "gather_bound_ms": (full_bytes + 8 * K * E) / HBM_BYTES_PER_S
+           * 1e3,
+           "library_ms": None,
+           "library": ("n/a: no single PyTorch call computes per-edge "
+                       "sorted-row intersection counts")}
+    results.append(row)
+    log("kernel " + json.dumps(row))
+    if not ok:
+        fail(f"ell_intersect disagrees with its plain version: {row}")
+
+
+# ------------------------------------------------------- launch counting
+
+def _ops_modules() -> dict:
+    from repro_torch.kernels.ell_combine import ops as cops
+    from repro_torch.kernels.ell_intersect import ops as iops
+    from repro_torch.kernels.pregel_superstep import ops as sops
+    return {"pregel_superstep": sops, "ell_intersect": iops,
+            "ell_combine": cops}
+
+
+def launch_counts() -> dict:
+    return {n: m.KERNEL_LAUNCHES for n, m in _ops_modules().items()}
+
+
+def reset_counts() -> None:
+    for m in _ops_modules().values():
+        m.KERNEL_LAUNCHES = 0
+
+
+def launched_since(before: dict) -> dict:
+    now = launch_counts()
+    return {n: now[n] - before[n] for n in now}
+
+
+# ---------------------------------------------------------------- oracles
+
+def _host_edges(coo):
+    return (coo.src[: coo.n_edges].cpu().numpy(),
+            coo.dst[: coo.n_edges].cpu().numpy())
+
+
+def triangles_oracle(coo) -> int:
+    """scipy: orient every edge from the lower id to the higher (any
+    total order counts each triangle once) and sum (L @ L) .* L."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    src, dst = _host_edges(coo)
+    up = src < dst
+    V = coo.n_vertices
+    L = csr_matrix((np.ones(int(up.sum()), np.int64), (src[up], dst[up])),
+                   shape=(V, V))
+    return int((L @ L).multiply(L).sum())
+
+
 # --------------------------------------------------------------- phase 3
 
-def engine_phase(coo):
+def engine_phase(coo, coo_small):
+    import importlib
+
     import torch
     from repro_torch.core.engines import LocalEngine
-    from repro_torch.kernels.pregel_superstep import ops
+    TT = importlib.import_module("repro_torch.core.algorithms.triangles")
     V = coo.n_vertices
     eng = LocalEngine(coo)
     plain = LocalEngine(coo, use_kernels=False)   # parity: no kernel
@@ -288,39 +514,90 @@ def engine_phase(coo):
     sources = tuple(i * V // 4 for i in range(4))
     for algo, params in (("connected_components", {}),
                          ("bfs", {"sources": sources}),
-                         ("sssp", {"source": V // 3})):
+                         ("sssp", {"source": V // 3}),
+                         ("k_core", {"k": KCORE_K})):
         base = None
         for label, e, variant in (("dense", eng, "dense"),
                                   ("fused", eng, "fused"),
                                   ("frontier", eng, "frontier"),
                                   ("fused_plain", plain, "fused")):
-            k0 = ops.KERNEL_LAUNCHES
+            before = launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = e.run(algo, params, variant=variant)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launched = ops.KERNEL_LAUNCHES - k0
+            launched = launched_since(before)
+            n_step = launched["pregel_superstep"]
             realized = r.meta["realized_variant"]
             row = {"algo": algo, "variant": label, "realized": realized,
                    "iterations": r.iterations, "wall_ms": wall * 1e3,
                    "ms_per_superstep": wall * 1e3 / max(r.iterations, 1),
-                   "kernel_launches": launched}
+                   "launches": launched}
             rows.append(row)
             log("engine " + json.dumps(row))
             if realized != variant:
                 fail(f"{algo}: variant {variant} fell back to {realized}")
             if label == "fused":
-                if launched < r.iterations or launched == 0:
-                    fail(f"{algo}: fused run launched the kernel {launched} "
+                if n_step < r.iterations or n_step == 0:
+                    fail(f"{algo}: fused run launched the kernel {n_step} "
                          f"times in {r.iterations} supersteps")
-            elif launched:
+            elif n_step:
                 fail(f"{algo}: {label} launched the fused kernel")
+            if launched["ell_intersect"] or launched["ell_combine"]:
+                fail(f"{algo}: {label} launched another kernel: {launched}")
             val = r.value.contiguous().view(torch.uint8)
             if base is None:
-                base = (val, r.iterations)
+                base = (val, r.iterations, r.value)
             elif not torch.equal(val, base[0]) or r.iterations != base[1]:
                 fail(f"{algo}: {label} differs from dense")
+        if algo == "k_core":
+            want = TT.k_core_reference(*_host_edges(coo), V, KCORE_K)
+            if not (base[2].cpu().numpy() == want).all():
+                fail("k-core membership differs from the peeling oracle")
+            log(f"oracle: {KCORE_K}-core of {int(want.sum())} vertices "
+                f"after {base[1]} supersteps")
+    rows += triangle_rows(eng, plain, coo, f"2^{PHASE3_LOG2V}")
+    small = LocalEngine(coo_small)
+    rows += triangle_rows(small, None, coo_small, f"2^{BITSET_LOG2V}",
+                          bitset=True)
+    return rows
+
+
+def triangle_rows(eng, plain, coo, size, bitset=False):
+    """Triangle count through ``LocalEngine.run``: intersect (one
+    ell_intersect launch), the plain intersect on the card (none) and, on
+    a small graph, bitset (none); all equal scipy."""
+    import torch
+    want = triangles_oracle(coo)
+    runs = [("intersect", eng, "intersect")]
+    if plain is not None:
+        runs.append(("intersect_plain", plain, "intersect"))
+    if bitset:
+        runs.append(("bitset", eng, "bitset"))
+    rows = []
+    for label, e, variant in runs:
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = e.run("triangle_count", variant=variant)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launched_since(before)
+        row = {"algo": "triangle_count", "graph": size, "variant": label,
+               "value": r.value, "oracle": want, "wall_ms": wall * 1e3,
+               "launches": launched,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9}
+        rows.append(row)
+        log("engine " + json.dumps(row))
+        expect = 1 if label == "intersect" else 0
+        if launched["ell_intersect"] != expect or \
+                launched["pregel_superstep"] or launched["ell_combine"]:
+            fail(f"triangles {label} at {size}: launches {launched}")
+        if r.value != want:
+            fail(f"triangles {label} at {size}: {r.value} != scipy's {want}")
     return rows
 
 
@@ -330,7 +607,6 @@ def platform_phase(coo):
     import torch
     from repro_torch.core import graph as G
     from repro_torch.core.query import GraphPlatform, GraphQuery
-    from repro_torch.kernels.pregel_superstep import ops
     V = coo.n_vertices
     plat = GraphPlatform(coo)
     # PageRank folds 1/outdeg into the raw weights, so it is a probability
@@ -351,28 +627,111 @@ def platform_phase(coo):
     ]
     out, rows = {}, []
     for name, p, q in queries:
-        plan = p.plan(q)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        k0 = ops.KERNEL_LAUNCHES
-        t0 = time.perf_counter()
-        r = p.query(q)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        row = {"query": name, "wall_ms": wall * 1e3,
-               "iterations": r.iterations, "engine": plan.engine,
-               "planned_variant": plan.variant,
-               "realized_variant": r.meta.get("realized_variant"),
-               "kernel_launches": ops.KERNEL_LAUNCHES - k0,
-               "cache": r.meta.get("cache", "miss"),
-               "max_memory_allocated_gb":
-                   torch.cuda.max_memory_allocated() / 1e9}
+        r, row = _timed_query(name, p, q)
         rows.append(row)
-        log("query " + json.dumps(row))
         out[name] = r
     if out["cc_repeat"].meta.get("cache") != "hit":
         fail("the repeated CC query was not a result-cache hit")
+    del unit
     check_oracles(coo, out, sources, sssp_src)
+    rows += cohesion_queries(plat, coo)
+    return plat, rows
+
+
+def _timed_query(name, p, q, temp=None):
+    import torch
+    plan = p.plan(q)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    r = p.query(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = {"query": name, "wall_ms": wall * 1e3,
+           "iterations": r.iterations, "engine": plan.engine,
+           "planned_variant": plan.variant,
+           "realized_variant": r.meta.get("realized_variant"),
+           "launches": launched_since(before),
+           "cache": r.meta.get("cache", "miss"),
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    if temp is not None:
+        row["run"] = temp
+    log("query " + json.dumps(row))
+    return r, row
+
+
+def cohesion_queries(plat, coo):
+    """Triangle count, k-core and its size, degree statistics through
+    ``GraphPlatform.query``: each cold (derived state built, e.g. the
+    OrientedELL) and warm (the result cache emptied first, derived state
+    kept), against host oracles and the plain intersect on the card."""
+    import importlib
+
+    import numpy as np
+    from repro_torch.core.query import GraphQuery
+    TT = importlib.import_module("repro_torch.core.algorithms.triangles")
+    V = coo.n_vertices
+    queries = [("triangles", GraphQuery.triangle_count()),
+               ("kcore", GraphQuery.k_core(KCORE_K)),
+               ("kcore_count", GraphQuery.k_core(KCORE_K_COUNT,
+                                                 count_only=True)),
+               ("degrees", GraphQuery.degree_stats())]
+    plan = plat.plan(queries[0][1])
+    if (plan.engine, plan.variant) != ("local", "intersect"):
+        fail(f"triangle_count planned {plan.engine}/{plan.variant}, not "
+             "local/intersect")
+    out, rows = {}, []
+    for name, q in queries:
+        for temp in ("cold", "warm"):
+            plat._result_cache.clear()
+            r, row = _timed_query(name, plat, q, temp)
+            rows.append(row)
+            if row["cache"] == "hit":
+                fail(f"{name} ({temp}) was served from the result cache")
+            if name == "triangles" and row["launches"]["ell_intersect"] == 0:
+                fail(f"triangle_count ({temp}) never launched ell_intersect")
+            if name in out and r.iterations != out[name].iterations:
+                fail(f"{name}: warm run differs from the cold one")
+            out[name] = r
+    t0 = time.perf_counter()
+    plain, _ = TT.triangle_count_intersect(plat.coo,
+                                           oriented=plat.local.oriented,
+                                           use_kernels=False)
+    plain_s = time.perf_counter() - t0
+    src, dst = _host_edges(coo)
+    t0 = time.perf_counter()
+    want_tri = triangles_oracle(coo)
+    tri_s = time.perf_counter() - t0
+    if not out["triangles"].value == plain == want_tri:
+        fail(f"triangles {out['triangles'].value}: plain on the card "
+             f"{plain}, scipy {want_tri}")
+    t0 = time.perf_counter()
+    want_core = TT.k_core_reference(src, dst, V, KCORE_K)
+    want_count = int(TT.k_core_reference(src, dst, V, KCORE_K_COUNT).sum())
+    core_s = time.perf_counter() - t0
+    if not (out["kcore"].value.cpu().numpy() == want_core).all():
+        fail("k-core membership differs from the peeling oracle")
+    if out["kcore_count"].value != want_count:
+        fail(f"{KCORE_K_COUNT}-core size {out['kcore_count'].value} != "
+             f"{want_count}")
+    outd = np.bincount(src, minlength=V)
+    ind = np.bincount(dst, minlength=V)
+    want_deg = {"n_vertices": V, "n_edges": coo.n_edges,
+                "max_out_degree": int(outd.max()),
+                "max_in_degree": int(ind.max()),
+                "mean_degree": float(coo.n_edges / V),
+                "dangling": int((outd == 0).sum())}
+    if out["degrees"].value != want_deg:
+        fail(f"degree stats {out['degrees'].value} != numpy's {want_deg}")
+    o = plat.local.oriented
+    log(f"oracles: {want_tri} triangles (plain intersect on the card "
+        f"{plain_s * 1e3:.1f} ms, scipy {tri_s:.1f} s), OrientedELL K = "
+        f"{o.max_out_degree} over {o.n_edges} oriented edges; "
+        f"{KCORE_K}-core of {int(want_core.sum())} vertices, "
+        f"{KCORE_K_COUNT}-core of {want_count} (peeling oracle "
+        f"{core_s:.1f} s); degrees {json.dumps(want_deg)}")
     return rows
 
 
@@ -448,7 +807,71 @@ def check_oracles(coo, out, sources, sssp_src):
         fail(f"PageRank L1 {l1} exceeds {PAGERANK_L1_TOL}")
 
 
+# --------------------------------------------------------------- phase 5
+
+def spmv_path(plat, gen):
+    """``LocalEngine._spmv`` (bound to ell_spmv) for sum, min and max over
+    the platform's degree-capped ELL, on one random state vector."""
+    import torch
+    eng = plat.local
+    t0 = time.perf_counter()
+    ell = eng.ell
+    torch.cuda.synchronize()
+    log(f"capped ELL V=2^{MAIN_LOG2V} K={ell.max_degree}: built in "
+        f"{time.perf_counter() - t0:.1f} s, {ell.nbytes() / 1e9:.2f} GB, "
+        f"{ell.lost_fraction:.3g} of edges over the cap")
+    x = torch.rand(ell.nbr.shape[0], generator=gen, device=ell.nbr.device)
+    outs, rows = {}, []
+    for op in ("sum", "min", "max"):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[op] = eng._spmv(ell.nbr, ell.mask, ell.w, x, op)
+        torch.cuda.synchronize()
+        row = {"path": "LocalEngine._spmv", "op": op,
+               "wall_ms": (time.perf_counter() - t0) * 1e3,
+               "launches": launched_since(before)}
+        rows.append(row)
+        log("spmv " + json.dumps(row))
+    return ell, x, outs, rows
+
+
 # ------------------------------------------------------------------ main
+
+def build_all():
+    """Every kernel library at once: one nvcc per library, in threads."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ell_intersect import ops as iops
+    from repro_torch.kernels.pregel_superstep import ops as sops
+    errors = []
+
+    def build(fn):
+        try:
+            fn()
+        except Exception as e:        # reported below, in this thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(f,))
+               for f in (sops.library, iops.library)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name in ("pregel_superstep", "ell_intersect"):
+        info = _build.BUILD_LOG[name]
+        lines = info["log"].splitlines()
+        regs = sorted({ln.split("Used ")[1].split(",")[0]
+                       for ln in lines if "Used " in ln})
+        spills = any("spill stores" in ln and not (
+            " 0 bytes spill stores" in ln and " 0 bytes spill loads" in ln)
+            for ln in lines)
+        log(f"build {name}: {info['seconds']:.1f} s, registers per thread "
+            f"{regs}, spills {spills}")
+    log(f"build: all libraries in {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> int:
     try:
@@ -473,21 +896,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     # 1. build
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.pregel_superstep import ops
-    ops.library()
-    info = _build.BUILD_LOG["pregel_superstep"]
-    lines = info["log"].splitlines()
-    regs = sorted({ln.split("Used ")[1].split(",")[0]
-                   for ln in lines if "Used " in ln})
-    spills = any("spill stores" in ln and not (
-        " 0 bytes spill stores" in ln and " 0 bytes spill loads" in ln)
-        for ln in lines)
-    log(f"build pregel_superstep: {info['seconds']:.1f} s, "
-        f"registers per thread {regs}, spills {spills}")
+    build_all()
 
     # graphs (host build; the main-path graph is reused by phases 2 and 4)
     g3 = identifier_graph(PHASE3_LOG2V, seed=0)
+    g_small = identifier_graph(BITSET_LOG2V, seed=1)
     g4 = identifier_graph(MAIN_LOG2V, seed=3)
 
     # 2. kernel vs plain on the card
@@ -504,41 +917,97 @@ def main() -> int:
         check_kernel(label, ell.nbr, ell.mask, ell.w, gen, True, checks)
         del ell
     torch.cuda.empty_cache()
+    check_intersect_rows(checks)
+    for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200)):
+        nbr, mask, w = _ragged(v, k, gen)
+        check_combine(f"ragged {v}x{k}", nbr, mask, w,
+                      torch.rand(v, generator=gen, device="cuda"), False,
+                      checks)
 
-    # 3-4. the main path; kernel launches are counted from here
-    ops.KERNEL_LAUNCHES = 0
-    engine_rows = engine_phase(g3)
-    platform_rows = platform_phase(g4)
-    launches = ops.KERNEL_LAUNCHES
-    if launches == 0:
-        fail("the main path never launched pregel_superstep")
-    by_path = {
-        f"LocalEngine.run V=2^{PHASE3_LOG2V}":
-            sum(r["kernel_launches"] for r in engine_rows),
-        f"GraphPlatform.query V=2^{MAIN_LOG2V}":
-            sum(r["kernel_launches"] for r in platform_rows)}
-    if sum(by_path.values()) != launches:
-        fail(f"launches by path {by_path} do not add up to {launches}")
+    # 3-5. the paths; every count is set to 0 just before a path runs
+    # and read just after it
+    paths = {}
+    reset_counts()
+    engine_rows = engine_phase(g3, g_small)
+    paths[f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}"] = \
+        launch_counts()
+    reset_counts()
+    plat, platform_rows = platform_phase(g4)
+    paths[f"GraphPlatform.query V=2^{MAIN_LOG2V}"] = launch_counts()
+    reset_counts()
+    ell, x, outs, spmv_rows = spmv_path(plat, gen)
+    paths[f"LocalEngine._spmv V=2^{MAIN_LOG2V}"] = launch_counts()
+    must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
+                ("pregel_superstep", "ell_intersect"),
+            f"GraphPlatform.query V=2^{MAIN_LOG2V}": ("ell_intersect",),
+            f"LocalEngine._spmv V=2^{MAIN_LOG2V}": ("ell_combine",)}
+    for path, names in must.items():
+        for name in names:
+            if paths[path][name] == 0:
+                fail(f"the path {path} never launched {name}")
+    log("launches by path " + json.dumps(paths))
 
-    main_row = next(r for r in checks
-                    if r["layout"] == f"in-ELL 2^{MAIN_LOG2V}"
-                    and r["combo"] == "cc")
+    # kernel vs plain at the main-path shapes, on the platform's own
+    # derived state (launches here are checks, not a path's)
+    check_intersect_main(plat.local.oriented, checks)
+    check_combine(f"capped ELL 2^{MAIN_LOG2V}", ell.nbr, ell.mask, ell.w, x,
+                  True, checks, path_out=outs)
+    del ell, outs
+
+    def by_path(name):
+        return {p: c[name] for p, c in paths.items()}
+
+    def errs(kernel):
+        return max(r["max_abs_err"] for r in checks
+                   if r.get("kernel", "pregel_superstep") == kernel)
+
+    step = next(r for r in checks
+                if r["layout"] == f"in-ELL 2^{MAIN_LOG2V}"
+                and r.get("combo") == "cc")
+    inter = next(r for r in checks
+                 if r["layout"] == f"OrientedELL 2^{MAIN_LOG2V}")
+    comb = next(r for r in checks
+                if r["layout"] == f"capped ELL 2^{MAIN_LOG2V}"
+                and r["op"] == "sum")
     log(json.dumps({"summary": {
         "engine": engine_rows, "platform": platform_rows,
-        "seconds": time.perf_counter() - t_start}}))
+        "spmv": spmv_rows, "seconds": time.perf_counter() - t_start}}))
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "pregel_superstep", "route": "cuda",
-        "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
-                  "superstep.cu",
-        "replaces": "src/repro/kernels/pregel_superstep/kernel.py:43",
-        "launches": launches, "launches_by_path": by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in checks),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": f"connected components (int32, msg_src, min) over the "
-                 f"V=2^{MAIN_LOG2V} in-ELL, K={main_row['K']}"}]}))
+    numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels": [
+        {"name": "pregel_superstep", "route": "cuda",
+         "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
+                   "superstep.cu",
+         "replaces": "src/repro/kernels/pregel_superstep/kernel.py:43",
+         "launches": sum(by_path("pregel_superstep").values()),
+         "launches_by_path": by_path("pregel_superstep"),
+         "max_abs_err": errs("pregel_superstep"),
+         **{k: step[k] for k in numbers},
+         "shape": f"connected components (int32, msg_src, min) over the "
+                  f"V=2^{MAIN_LOG2V} in-ELL, K={step['K']}"},
+        {"name": "ell_intersect", "route": "cuda",
+         "source": "src/repro_torch/kernels/ell_intersect/csrc/"
+                   "intersect.cu",
+         "replaces": "src/repro/kernels/ell_intersect/kernel.py:43",
+         "launches": sum(by_path("ell_intersect").values()),
+         "launches_by_path": by_path("ell_intersect"),
+         "max_abs_err": errs("ell_intersect"),
+         **{k: inter[k] for k in numbers},
+         "full_nbr_bound_ms": inter["full_nbr_bound_ms"],
+         "gather_bound_ms": inter["gather_bound_ms"],
+         "library": inter["library"],
+         "shape": f"per-edge counts over the V=2^{MAIN_LOG2V} OrientedELL, "
+                  f"K={inter['K']}, {inter['padded_edges']} padded edges"},
+        {"name": "ell_combine", "route": "cuda",
+         "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
+                   "superstep.cu",
+         "replaces": "src/repro/kernels/ell_combine/kernel.py:37",
+         "launches": sum(by_path("ell_combine").values()),
+         "launches_by_path": by_path("ell_combine"),
+         "max_abs_err": errs("ell_combine"),
+         **{k: comb[k] for k in numbers},
+         "shape": f"ell_spmv sum (x*w) over the V=2^{MAIN_LOG2V} capped "
+                  f"ELL, K={comb['K']}"}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

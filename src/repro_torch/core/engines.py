@@ -44,6 +44,7 @@ from repro_torch.core.pregel import (
     run_pregel_fused,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ell_combine import ops as ell_ops
 from repro_torch.kernels.pregel_superstep.ref import as_dtype
 
 # Byte budget for the *uncapped* ELL layouts the fused/frontier superstep
@@ -590,7 +591,9 @@ class LocalEngine(Engine):
     similarity queries).  ``use_kernels`` is the counterpart of the
     reference's ``use_pallas``: on by default (the reference's service
     never turns ``use_pallas`` on; the port's service runs the CUDA
-    kernel on the card), ``False`` for plain-version parity runs.
+    kernels on the card), ``False`` for plain-version parity runs.
+    ``_spmv`` is the ELL gather + combine under the same switch: the
+    ``ell_combine`` wrapper (the kernel on the card) or its plain version.
     """
 
     name = "local"
@@ -600,6 +603,7 @@ class LocalEngine(Engine):
         super().__init__(coo, mesh=None, n_data=1, n_model=1,
                          max_degree=max_degree, device=device,
                          use_kernels=use_kernels)
+        self._spmv = ell_ops.ell_spmv if use_kernels else ell_ops.ell_spmv_ref
 
     def _clone(self) -> "LocalEngine":
         return LocalEngine(self.coo, max_degree=self.max_degree,

@@ -88,6 +88,10 @@ class GraphQuery:
                       max_iters=max_iters)
 
     @classmethod
+    def degree_stats(cls):
+        return cls.of("degree_stats", True)
+
+    @classmethod
     def bfs(cls, sources, count_only=False, max_iters=None):
         """Hop distances from a source set; ``count_only`` returns the
         size of the reachable set instead of the distance table.
@@ -99,6 +103,16 @@ class GraphQuery:
     def sssp(cls, source: int, max_iters=None):
         """Single-source weighted shortest paths (non-negative weights)."""
         return cls.of("sssp", source=source, max_iters=max_iters)
+
+    @classmethod
+    def triangle_count(cls):
+        """Global triangle count (inherently count-only)."""
+        return cls.of("triangle_count", True)
+
+    @classmethod
+    def k_core(cls, k: int, count_only=False, max_iters=None):
+        """k-core membership; ``count_only`` returns the core size."""
+        return cls.of("k_core", count_only, k=k, max_iters=max_iters)
 
 
 class GraphPlatform:

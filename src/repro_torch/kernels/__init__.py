@@ -2,9 +2,13 @@
 
 * ``pregel_superstep`` — the fused Pregel superstep (gather -> edge
   program -> masked row reduce over the in-neighbor ELL layout); the
-  fused variant of connected components, BFS and SSSP runs on it.
+  fused variant of connected components, BFS, SSSP and k-core runs on it.
+* ``ell_intersect`` — sorted-row intersection counts over an
+  ``OrientedELL`` (the ``intersect`` variant of triangle counting).
+* ``ell_combine`` — the ELL gather + monoid combine (``ell_spmv``); a
+  special case of the superstep, so it launches that kernel.
 
-Each package holds the CUDA source (``csrc/``), its plain PyTorch version
-(``ref.py``) and the wrapper (``ops.py``).  ``_build`` compiles the
-sources with nvcc on first use.
+Each package holds its plain PyTorch version (``ref.py``), the wrapper
+(``ops.py``) and, except ``ell_combine``, the CUDA source (``csrc/``).
+``_build`` compiles the sources with nvcc on first use.
 """

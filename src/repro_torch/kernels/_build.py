@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict = {}       # one lock per library: builds run in parallel
 _LIBS: dict = {}
 #: name -> {"seconds", "path", "cached", "log"} of the last load/build;
 #: ``log`` holds nvcc's output, including ptxas' register/spill report.
@@ -59,8 +60,12 @@ def _digest(sources: Sequence[Path]) -> str:
 
 def load(name: str, sources: Sequence[os.PathLike]) -> ctypes.CDLL:
     """Compile ``sources`` into ``lib<name>-<hash>.so`` (once) and load it.
-    Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    Raises ``RuntimeError`` with nvcc's output when the build fails.
+    Libraries of different names build concurrently when called from
+    several threads; one name builds once."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

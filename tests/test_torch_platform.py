@@ -229,9 +229,12 @@ def test_two_pool_federation_returns_the_same_bytes(graphs):
 
 def test_registry_holds_the_slice():
     from repro_torch.core import registry as R
-    assert R.names() == ["bfs", "connected_components", "pagerank", "sssp"]
-    for name in ("bfs", "connected_components", "sssp"):
+    assert R.names() == ["bfs", "connected_components", "degree_stats",
+                         "k_core", "pagerank", "sssp", "triangle_count"]
+    for name in ("bfs", "connected_components", "k_core", "sssp"):
         assert set(R.get(name).variants) == {"dense", "fused", "frontier"}
+    assert set(R.get("triangle_count").variants) == {"bitset", "intersect"}
+    assert R.get("k_core").incremental is not None
 
 
 @pytest.mark.parametrize("algo", ["bfs", "sssp", "connected_components",
@@ -271,6 +274,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "import repro_torch.core.query, repro_torch.core.service\n"
             "import repro_torch.core.algorithms\n"
+            "import repro_torch.core.algorithms.triangles\n"
+            "import repro_torch.kernels.ell_intersect\n"
+            "import repro_torch.kernels.ell_combine\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
