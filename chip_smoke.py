@@ -8,9 +8,10 @@ Run from the root of a checkout, on a host with one CUDA card::
 It builds the port's CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card, drives the port's paths
 (graph queries through ``LocalEngine.run`` and ``GraphPlatform.query``,
-and ``LocalEngine._spmv``) and checks the answers against host oracles
-(scipy, numpy).  Phases, in order; any failure exits non-zero and prints
-no result line:
+``LocalEngine._spmv``, and Gemma-2 2B serving through ``greedy_generate``)
+and checks the answers against host oracles (scipy, numpy) and the plain
+versions on the card.  Phases, in order; any failure exits non-zero and
+prints no result line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -22,10 +23,22 @@ no result line:
               graphs; ell_intersect on sorted row pairs (K = 1, ragged K,
               K = 3000, all-sentinel and identical rows); ell_spmv
               (ell_combine, which launches the superstep kernel) on ragged
-              shapes.  min/max and intersection counts bit-identical,
-              float sums within rtol 1e-5; timed with CUDA events (median
-              of 10 samples of 10 back-to-back calls; the plain versions
-              at the main-path shapes 3 samples of 1) beside the bound
+              shapes; flash_attention at the Gemma-2 2B prefill shapes
+              (B = 2, S = 8192, GQA 8/4, D = 256, bf16, softcap 50, window
+              4096 and 0), SmolLM's (2 x 8192, 15/5, D = 64) and
+              Granite's (1 x 8192, 32/8, D = 128), and ragged float32 MQA
+              shapes; the softcap rows once more with q scaled by 10,
+              logits at the cap.  min/max and intersection counts
+              bit-identical, float sums within rtol 1e-5, attention within
+              ``REL_TOL`` of each output's size (|want| plus its row's
+              RMS: 1e-2 bf16, 1e-4 float32) and, on unit-normal inputs,
+              within 2e-2 (bf16) and 1e-4 (float32) absolute; planted
+              faults (softcap dropped, window a tile short, first kv tile
+              dropped) must fail that check; timed with CUDA events
+              (median of 10 samples of 10 back-to-back calls; the plain
+              versions at the main-path shapes 3 samples of 1) beside
+              the bound and, where one PyTorch call computes the same
+              function, its time
   3. engine   on the V = 2^20 identifier graph through ``LocalEngine.run``:
               CC, BFS (4 sources), SSSP and k-core (k = 4) with variant
               dense, fused and frontier, and fused once more with
@@ -47,6 +60,24 @@ no result line:
               intersect version on the card
   5. spmv     ``LocalEngine._spmv`` (ell_spmv) sum/min/max over the
               platform's degree-capped ELL (K = 128)
+  6. serve    Gemma-2 2B at full width (26 layers, bf16 activations over
+              float32 master weights drawn from seed 0, flash attention):
+              two batches of requests through ``greedy_generate`` (the
+              code path of ``repro_torch.launch.serve``), 2 prompts of
+              8192 tokens + 16 generated and 8 prompts of 512 + 32;
+              flash_attention launched once per layer in each prefill and
+              never in a decode step; the prefill's last logits against
+              the same model with ``use_kernels=False`` (the plain
+              attention on the card) and a float32 model on the same
+              weights, on these and three more batches, within limits
+              scaled by the bf16 run's own distance from float32; planted
+              faults (the window a kv tile short) must break those limits;
+              greedy first tokens equal wherever the plain run's top-2
+              margin exceeds twice the measured error; ``decode_step`` at
+              position S against ``forward`` over S + 1 tokens; prefill
+              wall time, decode ms per token, tokens/s, peak device
+              memory, the kernel's device time inside the prefill (CUDA
+              events around its 26 launches) and its share
 
 Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
 ``OrientedELL``, ell_spmv over the capped ELL) run after phases 4-5, on
@@ -61,6 +92,8 @@ path, and each kernel's numbers at its main-path shape); the last line is
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -80,6 +113,7 @@ KCORE_K_COUNT = 8
 BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 PAGERANK_HALT_L1 = 1e-5    # PageRank halts when an iteration moves < this
 PAGERANK_L1_TOL = 1e-4
 TIMING_REPS = 10
@@ -455,14 +489,164 @@ def check_intersect_main(o, results):
         fail(f"ell_intersect disagrees with its plain version: {row}")
 
 
+# (label, B, Hq, Hkv, S, D, dtype, options, SDPA computes the same?,
+#  q scale).  Unit-normal q, k, v give scaled logits of about N(0, 1),
+#  which a softcap of 50 moves by under 0.02; the "at the cap" rows scale
+#  q by 10 (logits of std 10, up to about 50), where it bends them hard.
+FLASH_SHAPES = [
+    ("gemma2-2b local", 2, 8, 4, 8192, 256, "bfloat16",
+     dict(causal=True, window=4096, softcap=50.0), False, 1.0),
+    ("gemma2-2b global", 2, 8, 4, 8192, 256, "bfloat16",
+     dict(causal=True, softcap=50.0), False, 1.0),
+    ("gemma2-2b local, logits at the cap", 2, 8, 4, 8192, 256, "bfloat16",
+     dict(causal=True, window=4096, softcap=50.0), False, 10.0),
+    ("gemma2-2b global, logits at the cap", 2, 8, 4, 8192, 256, "bfloat16",
+     dict(causal=True, softcap=50.0), False, 10.0),
+    ("smollm-360m", 2, 15, 5, 8192, 64, "bfloat16", dict(causal=True), True,
+     1.0),
+    ("granite-8b", 1, 32, 8, 8192, 128, "bfloat16", dict(causal=True), True,
+     1.0),
+    ("ragged MQA causal", 1, 8, 1, 1000, 32, "float32", dict(causal=True),
+     False, 1.0),
+    ("ragged MQA", 1, 8, 1, 1000, 32, "float32", dict(causal=False), False,
+     1.0),
+    ("ragged MQA window", 3, 8, 1, 77, 64, "float32",
+     dict(causal=True, window=5), False, 1.0),
+    ("ragged MQA softcap, logits at the cap", 2, 8, 1, 1000, 64, "float32",
+     dict(causal=True, window=300, softcap=50.0), False, 10.0),
+]
+# Each output is held to both bounds.  Absolute, on unit-normal inputs
+# (the reference's own bf16 tolerance): at the cap single keys carry the
+# rows, whose outputs run to |o| of 4-5, where one bf16 ulp is 0.03.
+# Relative (``rel_err``: each error over |want| plus its row's RMS):
+# ``REL_TOL``, one bf16 rounding of each side; the absolute bound alone
+# is as large as a long row's typical output.
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# a kv tile of the kernel
+FLASH_TILE = 64
+
+
+def valid_pairs(s, causal, window=0, **_):
+    """(query, key) pairs the masks leave open, for one head."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    hi = i if causal else np.full(s, s - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(s, int)
+    return int((hi - lo + 1).clip(min=0).sum())
+
+
+def flash_bound(b, hq, hkv, s, d, dtype, kw):
+    """Least time for the call: 4 D operations per open pair and query
+    head (q.k and p.v) at the type's peak (bf16 tensor cores; float32
+    outside them), against q, k, v read once and o written once."""
+    es = 2 if dtype == "bfloat16" else 4
+    ops = 4 * d * valid_pairs(s, **kw) * b * hq
+    nbytes = es * s * d * (2 * b * hq + 2 * b * hkv)
+    t_ops = ops / (BF16_OPS_PER_S if dtype == "bfloat16"
+                   else F32_OPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes")), ops
+
+
+def flash_faults(q, k, v, kw, scale, want, fops, mha_plain):
+    """Planted faults the check must reject, as (name, output): the
+    kernel launched without its softcap (logits at the cap) or with the
+    window one tile short, and, for a causal global layer, the plain
+    version with the first kv tile dropped for every query past it."""
+    import torch
+    faults = []
+    if kw.get("softcap") and scale > 1:
+        faults.append(("softcap dropped", fops.flash_attention(
+            q, k, v, **{**kw, "softcap": 0.0})))
+    if kw.get("window", 0) > FLASH_TILE:
+        faults.append(("window short by a tile", fops.flash_attention(
+            q, k, v, **{**kw, "window": kw["window"] - FLASH_TILE})))
+    elif kw.get("causal") and not kw.get("window") and scale == 1:
+        t = FLASH_TILE
+        tail = mha_plain(q[:, :, t:], k[:, :, t:], v[:, :, t:], **kw)
+        faults.append(("first kv tile dropped",
+                       torch.cat([want[:, :, :t], tail], dim=2)))
+    return faults
+
+
+def check_flash(results):
+    """flash_attention vs mha_plain on the card at the serving shapes and
+    on ragged MQA shapes, each timed beside its bound, its plain version
+    and, where one exists, SDPA (timed here only; the port never calls
+    it); each planted fault must fail the same check."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (REL_TOL, mha_plain,
+                                                         rel_err)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for label, b, hq, hkv, s, d, dtype, kw, sdpa, scale in FLASH_SHAPES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   for h in (hq, hkv, hkv))
+        q, k, v = (q * scale).to(dt), k.to(dt), v.to(dt)
+        got = fops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = mha_plain(q, k, v, **kw)
+        err, rel = max_abs_err(got.float(), want.float()), rel_err(got, want)
+        abs_tol = FLASH_TOL[dtype] if scale == 1 else None
+        ok = got.dtype == dt and rel <= REL_TOL[dt] and (
+            abs_tol is None or err <= abs_tol)
+        (bound, by), ops = flash_bound(b, hq, hkv, s, d, dtype, kw)
+        row = {"kernel": "flash_attention", "layout": label,
+               "shape": [b, hq, hkv, s, d], "dtype": dtype,
+               "options": kw, "q_scale": scale, "ok": bool(ok),
+               "max_abs_err": err, "tolerance": abs_tol, "rel_err": rel,
+               "rel_tolerance": REL_TOL[dt], "operations": ops}
+        row["faults"] = [
+            {"fault": name, "rel_err": rel_err(out, want),
+             "max_abs_err": max_abs_err(out.float(), want.float())}
+            for name, out in flash_faults(q, k, v, kw, scale, want, fops,
+                                          mha_plain)]
+        del want
+        row.update(
+            ms=cuda_ms(lambda: fops.flash_attention(q, k, v, **kw)),
+            plain_ms=cuda_ms(lambda: mha_plain(q, k, v, **kw), reps=3,
+                             calls=1, warmup=1),
+            bound_ms=bound, bound_by=by, library_ms=None)
+        row["tflops"] = ops / row["ms"] / 1e9
+        if sdpa:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            lerr = max_abs_err(lib().float(), got.float())
+            if not lerr <= FLASH_TOL[dtype]:
+                fail(f"SDPA disagrees with the kernel at {label}: {lerr}")
+            row["library_ms"] = cuda_ms(lib)
+            row["library"] = ("F.scaled_dot_product_attention(is_causal="
+                              "True, enable_gqa=True)")
+        elif kw.get("softcap"):
+            row["library"] = ("n/a: no single PyTorch call applies a logit "
+                              "softcap")
+        else:
+            row["library"] = "not timed (a check shape, not a path's)"
+        results.append(row)
+        log("kernel " + json.dumps(row))
+        if not ok:
+            fail(f"flash_attention disagrees with its plain version: {row}")
+        for f in row["faults"]:
+            if not f["rel_err"] > REL_TOL[dt]:
+                fail(f"flash check at {label} cannot see a planted fault: "
+                     f"{f}")
+        del q, k, v, got
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- launch counting
 
 def _ops_modules() -> dict:
     from repro_torch.kernels.ell_combine import ops as cops
     from repro_torch.kernels.ell_intersect import ops as iops
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.pregel_superstep import ops as sops
     return {"pregel_superstep": sops, "ell_intersect": iops,
-            "ell_combine": cops}
+            "ell_combine": cops, "flash_attention": fops}
 
 
 def launch_counts() -> dict:
@@ -836,12 +1020,294 @@ def spmv_path(plat, gen):
     return ell, x, outs, rows
 
 
+# --------------------------------------------------------------- phase 6
+
+SERVE_ARCH = "gemma2-2b"
+SERVE_PATH = f"DenseLM serve {SERVE_ARCH}"
+# (prompts, prompt tokens, generated tokens): S = 8192 is past the
+# 4096-token window, so the local layers really mask
+SERVE_BATCHES = ((2, 8192, 16), (8, 512, 32))
+# more request batches of 8 x 512 tokens, read for accuracy only (the
+# prompts' seeds): further sound readings of the bf16 runs' spread
+SERVE_ACCURACY_SEEDS = (101, 102, 103)
+# Model-level limits.  Random-weight bf16 logits carry the rounding of
+# bf16 activations through 26 layers, so the scale of a sound difference
+# is the plain bf16 run's own distance from the float32 model on the
+# same weights ("noise", max abs over the batch's last logits), read in
+# the same run.  The kernel's run may differ from the plain one by at
+# most SERVE_NOISE_FACTOR noises (max abs), and its mean distance from
+# the float32 model may be at most SERVE_F32_RATIO times the plain run's.
+# Both are set from readings on both sides (PERF.md, Findings): sound
+# batches, and planted faults, which phase 6 runs and must reject.
+SERVE_NOISE_FACTOR = 2.0
+SERVE_F32_RATIO = 2.0
+# prefill's last logits against forward's at the same position: the same
+# kernel over the same rows (read: 8e-6 to 1e-5)
+PREFILL_FORWARD_TOL = 1e-3
+
+
+def _argmax_tokens(logits):
+    import torch
+    return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+
+
+@contextlib.contextmanager
+def timed_flash_launches():
+    """CUDA events around every ``flash_attention`` kernel launch in the
+    block, recorded on the launch's stream: the kernel's own device time
+    inside a path (yields the list of event pairs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    events, launch = [], fops._launch
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+    fops._launch = timed
+    try:
+        yield events
+    finally:
+        fops._launch = launch
+
+
+def last_logits(m, batch, s):
+    """``m``'s prefill logits at the last prompt position."""
+    import torch
+    before = launch_counts()
+    logits, _ = m.prefill(batch, cache_len=s)
+    torch.cuda.synchronize()
+    if not m.use_kernels and sum(launched_since(before).values()):
+        fail("serve: use_kernels=False launched a kernel")
+    return logits
+
+
+def serve_accuracy(logits, plain_logits, ref32) -> dict:
+    """A run's last logits against the plain attention's (same bf16
+    model and weights), and both against the float32 model's."""
+    noise = max_abs_err(plain_logits, ref32)
+    err = max_abs_err(logits, plain_logits)
+    row = {"logits_max_abs_err": err, "f32_noise": noise,
+           "err_over_noise": err / noise,
+           "f32_mean_abs_dist_kernel": float((logits - ref32).abs().mean()),
+           "f32_mean_abs_dist_plain":
+               float((plain_logits - ref32).abs().mean())}
+    row["f32_ratio"] = (row["f32_mean_abs_dist_kernel"]
+                        / row["f32_mean_abs_dist_plain"])
+    return row
+
+
+def serve_rejects(acc) -> bool:
+    """Do the model-level limits reject this reading?"""
+    return not (acc["err_over_noise"] <= SERVE_NOISE_FACTOR
+                and acc["f32_ratio"] <= SERVE_F32_RATIO)
+
+
+def serve_phase():
+    """Gemma-2 2B serving through ``greedy_generate`` (the path), then per
+    batch: the prefill (with the kernel's launches timed inside it) and
+    the decode steps timed alone with their launch counts, the kernel's
+    prefill against the plain attention's; decode against forward; and
+    planted faults, which the limits must reject."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.serve_step import greedy_generate
+    t_phase = t0 = time.perf_counter()
+    model = serve.build(SERVE_ARCH, attn_impl="flash", seed=0)
+    cfg = model.cfg
+
+    def sibling(use_kernels=True, **changes):
+        """The model on the same (shared) master weights, with ``changes``
+        to its config."""
+        return DenseLM(dataclasses.replace(cfg, **changes),
+                       device=model.device, params=_param_tree(model.params),
+                       use_kernels=use_kernels)
+    plain = sibling(use_kernels=False)
+    f32 = sibling(use_kernels=False, dtype="float32")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters in float32, activations {cfg.dtype}) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    if cfg.dtype != "bfloat16" or cfg.n_layers != 26:
+        fail(f"serve: unexpected config {cfg}")
+    reqs = [(serve.prompts(cfg, b, s, seed=b, device=model.device), s, g)
+            for b, s, g in SERVE_BATCHES]
+
+    # the path: every count 0 just before, read just after
+    reset_counts()
+    rows = []
+    for batch, s, g in reqs:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = greedy_generate(model, batch, steps=g, cache_len=s + g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launched_since(before)
+        b = batch["tokens"].shape[0]
+        rows.append({"batch": b, "prompt": s, "generated": g,
+                     "cache_len": s + g, "generate_wall_ms": wall * 1e3,
+                     "launches": launched, "tokens": out,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9})
+        if out.shape != (b, g) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()):
+            fail(f"serve: bad tokens {tuple(out.shape)}")
+        if launched["flash_attention"] != cfg.n_layers or \
+                sum(launched.values()) != cfg.n_layers:
+            fail(f"serve: one generate launched {launched}, not one flash "
+                 f"launch per layer ({cfg.n_layers})")
+    path_counts = launch_counts()
+
+    for i, (row, (batch, s, g)) in enumerate(zip(rows, reqs)):
+        tokens = row.pop("tokens")
+        # prefill alone, the kernel's launches timed inside it
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with timed_flash_launches() as events:
+            logits, cache = model.prefill(batch, cache_len=s + g)
+            torch.cuda.synchronize()
+        row["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        if launched_since(before)["flash_attention"] != cfg.n_layers or \
+                len(events) != cfg.n_layers:
+            fail("serve: a prefill did not launch the kernel once per layer")
+        row["flash_ms_in_prefill"] = sum(a.elapsed_time(e)
+                                         for a, e in events)
+        row["flash_share_of_prefill"] = (row["flash_ms_in_prefill"]
+                                         / row["prefill_ms"])
+        # the decode steps alone: no kernel launch in any
+        tok = _argmax_tokens(logits)
+        seq = [tok]
+        before = launch_counts()
+        t0 = time.perf_counter()
+        for j in range(g - 1):
+            lg, cache = model.decode_step(tok, cache, s + j)
+            tok = _argmax_tokens(lg)
+            seq.append(tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (g - 1)
+        if sum(launched_since(before).values()):
+            fail("serve: a decode step launched a kernel")
+        b = row["batch"]
+        row.update(decode_ms_per_step=step_ms,
+                   decode_tokens_per_s=b / step_ms * 1e3,
+                   repeat_tokens_equal=bool(torch.equal(
+                       torch.cat(seq, dim=1), tokens)))
+        del cache
+        # kernel vs plain attention, same model and weights
+        plain_logits = last_logits(plain, batch, s)
+        ref32 = last_logits(f32, batch, s)
+        acc = serve_accuracy(logits, plain_logits, ref32)
+        if i == 0:
+            refs = plain_logits, ref32           # for the planted faults
+        before = launch_counts()
+        plain_tokens = greedy_generate(plain, batch, steps=g,
+                                       cache_len=s + g)
+        torch.cuda.synchronize()
+        if sum(launched_since(before).values()):
+            fail("serve: use_kernels=False launched a kernel")
+        err = acc["logits_max_abs_err"]
+        top2 = torch.topk(plain_logits[:, -1], 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        first_k = _argmax_tokens(logits)[:, 0]
+        first_p = _argmax_tokens(plain_logits)[:, 0]
+        row.update(acc, logits_tolerance=SERVE_NOISE_FACTOR * acc["f32_noise"],
+                   first_tokens_clear=int(clear.sum()),
+                   first_tokens_equal=int((first_k == first_p).sum()),
+                   all_tokens_equal_fraction=float(
+                       (tokens == plain_tokens).float().mean()))
+        if serve_rejects(acc):
+            fail(f"serve: the kernel's logits are out of the limits: {acc}")
+        if not bool((first_k == first_p)[clear].all()):
+            fail("serve: a first token differs where the plain top-2 margin "
+                 "exceeds twice the error")
+        del logits, plain_logits, ref32
+    # further sound readings: more batches of 8 x 512 prompts
+    sound = [{k: r[k] for k in ("err_over_noise", "f32_ratio")}
+             for r in rows]
+    for seed in SERVE_ACCURACY_SEEDS:
+        batch = serve.prompts(cfg, 8, 512, seed=seed, device=model.device)
+        acc = serve_accuracy(*(last_logits(m, batch, 512)
+                               for m in (model, plain, f32)))
+        sound.append({"seed": seed, **acc})
+        if serve_rejects(acc):
+            fail(f"serve: the kernel's logits are out of the limits at "
+                 f"seed {seed}: {acc}")
+    # planted faults at 2 x 8192 (past the window), which the limits
+    # must reject: the local layers' window a kv tile short, the softcap
+    # dropped (reported: random weights keep the logits far below it)
+    batch, s, _ = reqs[0]
+    faults = []
+    for name, changes, must_reject in (
+            ("window short by a tile", {"window": cfg.window - FLASH_TILE},
+             True),
+            ("softcap dropped", {"attn_logit_softcap": 0.0}, False)):
+        acc = serve_accuracy(last_logits(sibling(**changes), batch, s),
+                             *refs)
+        acc.update(fault=name, rejected=serve_rejects(acc))
+        faults.append(acc)
+        if must_reject and not acc["rejected"]:
+            fail(f"serve: the limits cannot see a planted fault: {acc}")
+    # decode at position S against forward over S + 1 tokens
+    batch, s, g = reqs[1]
+    sub = batch["tokens"][:2]
+    last, cache = model.prefill({"tokens": sub}, cache_len=s + 2)
+    nxt = _argmax_tokens(last)
+    full = model.forward({"tokens": torch.cat([sub, nxt], dim=1)})
+    # a planted fault on a copy of the cache: the token decoded one
+    # position late (an empty slot before it, rope one step on)
+    late = {k: v.clone() for k, v in cache.items()}
+    lg, _ = model.decode_step(nxt, cache, s)
+    lg_late, _ = model.decode_step(nxt, late, s + 1)
+    pre_err = max_abs_err(last[:, 0], full[:, s - 1])
+    dec_err = max_abs_err(lg[:, 0], full[:, s])
+    late_err = max_abs_err(lg_late[:, 0], full[:, s])
+    dec_tol = SERVE_NOISE_FACTOR * rows[1]["f32_noise"]
+    rows[1].update(prefill_vs_forward_max_abs_err=pre_err,
+                   prefill_vs_forward_tolerance=PREFILL_FORWARD_TOL,
+                   decode_vs_forward_max_abs_err=dec_err,
+                   decode_vs_forward_tolerance=dec_tol,
+                   decode_one_position_late_max_abs_err=late_err)
+    del full, cache, late
+    if not late_err > dec_tol:
+        fail(f"serve: decode vs forward cannot see a token decoded one "
+             f"position late ({late_err} <= {dec_tol})")
+    for row in rows:
+        log("serve " + json.dumps(row))
+    log("serve sound " + json.dumps(sound))
+    log("serve faults " + json.dumps(faults))
+    if not (dec_err <= dec_tol and pre_err <= PREFILL_FORWARD_TOL):
+        fail(f"serve: prefill / decode_step vs forward differ by {pre_err} "
+             f"/ {dec_err}")
+    del model, plain, f32
+    torch.cuda.empty_cache()
+    log(f"serve: phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return path_counts, rows
+
+
+def _param_tree(params):
+    import torch
+    return {k: _param_tree(v) if isinstance(v, torch.nn.ParameterDict)
+            else v.detach() for k, v in params.items()}
+
+
 # ------------------------------------------------------------------ main
 
 def build_all():
     """Every kernel library at once: one nvcc per library, in threads."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ell_intersect import ops as iops
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.pregel_superstep import ops as sops
     errors = []
 
@@ -853,14 +1319,14 @@ def build_all():
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(f,))
-               for f in (sops.library, iops.library)]
+               for f in (sops.library, iops.library, fops.library)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    for name in ("pregel_superstep", "ell_intersect"):
+    for name in ("pregel_superstep", "ell_intersect", "flash_attention"):
         info = _build.BUILD_LOG[name]
         lines = info["log"].splitlines()
         regs = sorted({ln.split("Used ")[1].split(",")[0]
@@ -888,6 +1354,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    # float32 products in full float32 (the plain versions and the
+    # unembedding are float32 references): no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 0. card
     card = card_line()
@@ -918,6 +1388,7 @@ def main() -> int:
         del ell
     torch.cuda.empty_cache()
     check_intersect_rows(checks)
+    check_flash(checks)
     for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200)):
         nbr, mask, w = _ragged(v, k, gen)
         check_combine(f"ragged {v}x{k}", nbr, mask, w,
@@ -937,22 +1408,28 @@ def main() -> int:
     reset_counts()
     ell, x, outs, spmv_rows = spmv_path(plat, gen)
     paths[f"LocalEngine._spmv V=2^{MAIN_LOG2V}"] = launch_counts()
-    must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
-                ("pregel_superstep", "ell_intersect"),
-            f"GraphPlatform.query V=2^{MAIN_LOG2V}": ("ell_intersect",),
-            f"LocalEngine._spmv V=2^{MAIN_LOG2V}": ("ell_combine",)}
-    for path, names in must.items():
-        for name in names:
-            if paths[path][name] == 0:
-                fail(f"the path {path} never launched {name}")
-    log("launches by path " + json.dumps(paths))
 
     # kernel vs plain at the main-path shapes, on the platform's own
     # derived state (launches here are checks, not a path's)
     check_intersect_main(plat.local.oriented, checks)
     check_combine(f"capped ELL 2^{MAIN_LOG2V}", ell.nbr, ell.mask, ell.w, x,
                   True, checks, path_out=outs)
-    del ell, outs
+    del ell, outs, plat, g3, g4, g_small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. LM serving (the counts are reset inside, just before the path)
+    paths[SERVE_PATH], serve_rows = serve_phase()
+    must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
+                ("pregel_superstep", "ell_intersect"),
+            f"GraphPlatform.query V=2^{MAIN_LOG2V}": ("ell_intersect",),
+            f"LocalEngine._spmv V=2^{MAIN_LOG2V}": ("ell_combine",),
+            SERVE_PATH: ("flash_attention",)}
+    for path, names in must.items():
+        for name in names:
+            if paths[path][name] == 0:
+                fail(f"the path {path} never launched {name}")
+    log("launches by path " + json.dumps(paths))
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -969,9 +1446,11 @@ def main() -> int:
     comb = next(r for r in checks
                 if r["layout"] == f"capped ELL 2^{MAIN_LOG2V}"
                 and r["op"] == "sum")
+    attn = next(r for r in checks if r["layout"] == "gemma2-2b global")
     log(json.dumps({"summary": {
         "engine": engine_rows, "platform": platform_rows,
-        "spmv": spmv_rows, "seconds": time.perf_counter() - t_start}}))
+        "spmv": spmv_rows, "serve": serve_rows,
+        "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [
@@ -1007,7 +1486,19 @@ def main() -> int:
          "max_abs_err": errs("ell_combine"),
          **{k: comb[k] for k in numbers},
          "shape": f"ell_spmv sum (x*w) over the V=2^{MAIN_LOG2V} capped "
-                  f"ELL, K={comb['K']}"}]}))
+                  f"ELL, K={comb['K']}"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+         "launches": sum(by_path("flash_attention").values()),
+         "launches_by_path": by_path("flash_attention"),
+         "max_abs_err": errs("flash_attention"),
+         "rel_err": max(r["rel_err"] for r in checks
+                        if r.get("kernel") == "flash_attention"),
+         **{k: attn[k] for k in numbers},
+         "library": attn["library"],
+         "shape": "Gemma-2 2B global layer in prefill: B=2, S=8192, "
+                  "Hq/Hkv=8/4, D=256, bf16, causal, softcap 50"}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

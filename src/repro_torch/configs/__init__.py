@@ -1,0 +1,3 @@
+from repro_torch.configs.base import (
+    ModelConfig, ShapeSpec, SHAPES, get_config, list_archs, reduced_config,
+)

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels (and ``ell_spmv``, which
-launches the superstep kernel) against their plain versions, and the
-engines and platform on ``cuda:0`` against the same port on the CPU.
+launches the superstep kernel) against their plain versions, the engines
+and platform on ``cuda:0`` against the same port on the CPU, and the
+dense LM's prefill and decode through the flash kernel.
 
 Every test needs a CUDA device and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the reference package, so
@@ -24,6 +25,9 @@ from repro_torch.kernels.ell_combine import ops as cops  # noqa: E402
 from repro_torch.kernels.ell_combine.ref import ell_combine_plain  # noqa: E402
 from repro_torch.kernels.ell_intersect import ops as iops  # noqa: E402
 from repro_torch.kernels.ell_intersect.ref import ell_intersect_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    REL_TOL, mha_plain, rel_err)
 from repro_torch.kernels.pregel_superstep import ops  # noqa: E402
 from repro_torch.kernels.pregel_superstep.ref import superstep_plain  # noqa: E402
 
@@ -316,3 +320,153 @@ def test_cohesion_queries_on_the_card_match_the_cpu():
     assert plat.query(GraphQuery.degree_stats()).value == \
         GraphPlatform(_graph("cpu"), device="cpu").query(
             GraphQuery.degree_stats()).value
+
+
+# -------------------------------------------------------- flash attention
+
+def _attn(b, hq, hkv, s, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,kw", [
+    (1, 2, 2, 128, 16, torch.float32, dict(causal=True)),
+    (2, 4, 2, 100, 32, torch.float32, dict(causal=False)),
+    (3, 8, 1, 77, 64, torch.float32, dict(causal=True, window=5)),
+    (1, 8, 1, 1000, 32, torch.float32, dict(causal=False, window=40)),
+    (2, 4, 2, 200, 128, torch.bfloat16, dict(causal=True, window=64,
+                                             softcap=50.0)),
+    (1, 2, 1, 130, 256, torch.bfloat16, dict(causal=True, softcap=30.0)),
+    (1, 2, 2, 64, 256, torch.float32, dict(causal=False)),
+    (2, 6, 3, 1, 64, torch.bfloat16, dict(causal=True)),
+    (2, 4, 1, 40, 16, torch.bfloat16, dict(causal=True)),
+    (3, 8, 2, 333, 32, torch.bfloat16, dict(causal=True, window=100)),
+    (1, 8, 8, 257, 64, torch.bfloat16, dict(causal=False, softcap=20.0)),
+    (2, 8, 4, 1000, 256, torch.bfloat16, dict(causal=True, window=300,
+                                              softcap=50.0)),
+])
+def test_flash_kernel_matches_plain(b, hq, hkv, s, d, dtype, kw):
+    q, k, v = _attn(b, hq, hkv, s, d, dtype, seed=s + d)
+    before = fops.KERNEL_LAUNCHES
+    got = fops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fops.KERNEL_LAUNCHES == before + 1
+    want = mha_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    # float32: summation order only; bfloat16: the reference's tolerance
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # and each error against the size of its row's outputs
+    assert rel_err(got, want) <= REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,kw", [
+    (2, 4, 2, 150, 64, torch.float32, dict(causal=True, softcap=50.0)),
+    (1, 8, 1, 300, 256, torch.float32, dict(causal=True, window=64,
+                                            softcap=30.0)),
+    (2, 8, 4, 1000, 256, torch.bfloat16, dict(causal=True, window=300,
+                                              softcap=50.0)),
+    (1, 4, 2, 513, 128, torch.bfloat16, dict(causal=False, softcap=20.0)),
+])
+def test_flash_kernel_softcap_at_large_logits(b, hq, hkv, s, d, dtype, kw):
+    """q scaled by 10 (scaled logits of std 10, up to about 50) drives
+    the logits into the cap, where a kernel without the softcap is far
+    outside the bound: the kernel launched with ``softcap=0`` shows it."""
+    q, k, v = _attn(b, hq, hkv, s, d, torch.float32, seed=s + d + 1)
+    q, k, v = (q * 10).to(dtype), k.to(dtype), v.to(dtype)
+    got = fops.flash_attention(q, k, v, **kw)
+    want = mha_plain(q, k, v, **kw)
+    assert rel_err(got, want) <= REL_TOL[dtype]
+    uncapped = fops.flash_attention(q, k, v, **{**kw, "softcap": 0.0})
+    assert rel_err(uncapped, want) > 10 * REL_TOL[dtype]
+
+
+def test_flash_kernel_reads_strided_views():
+    """The model's [B, S, H, D] activations, transposed, need no copy."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _attn(2, 8, 4, 96, 64, torch.bfloat16, seed=3))
+    assert not q.is_contiguous()
+    got = fops.flash_attention(q, k, v, causal=True, window=32)
+    want = fops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True, window=32)
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_raises_on_what_it_does_not_take():
+    q, k, v = _attn(1, 4, 2, 64, 64, torch.float32, seed=4)
+    with pytest.raises(ValueError, match="dtype"):
+        fops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtype"):
+        fops.flash_attention(q.double(), k.double(), v.double())
+    q48, k48, v48 = _attn(1, 4, 2, 64, 48, torch.float32, seed=5)
+    with pytest.raises(ValueError, match="head dim"):
+        fops.flash_attention(q48, k48, v48)
+    with pytest.raises(ValueError, match="cpu"):
+        fops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                             k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        fops.flash_attention(q[..., 1:33], k[..., 1:33], v[..., 1:33])
+
+
+# --------------------------------------------------------------- LM serving
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "smollm-360m", "granite-8b"])
+def test_prefill_launches_flash_once_per_layer(arch):
+    """Reduced config: one kernel launch per layer in prefill, none in a
+    decode step.  In float32 the kernel's prefill equals the plain
+    version's and the CPU's within 1e-4 (summation order); in bfloat16 its
+    logits are no farther from the float32 model's than the plain
+    version's are (mean absolute distance, within 2x: both carry the
+    rounding of bf16 activations, which dominates)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.serve_step import greedy_generate
+    cfg = dataclasses.replace(reduced_config(get_config(arch), n_layers=4),
+                              attn_impl="flash", dtype="bfloat16")
+    model = DenseLM(cfg, generator=torch.Generator(device="cuda")
+                    .manual_seed(0))
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    # the same (shared) master weights, plain attention and/or float32
+    plain = DenseLM(cfg, params=_tree(model.params), use_kernels=False)
+    f32 = DenseLM(f32_cfg, params=_tree(model.params), use_kernels=False)
+    f32_kernel = DenseLM(f32_cfg, params=_tree(model.params))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)).cuda()
+
+    def prefill(m):
+        before = fops.KERNEL_LAUNCHES
+        out, cache = m.prefill({"tokens": tok}, cache_len=48)
+        torch.cuda.synchronize()
+        assert fops.KERNEL_LAUNCHES == before + (cfg.n_layers
+                                                 if m.use_kernels else 0)
+        return out, cache
+
+    got, cache = prefill(model)
+    plain_out, _ = prefill(plain)
+    ref32, _ = prefill(f32)
+    got32, _ = prefill(f32_kernel)
+    torch.testing.assert_close(got32, ref32, rtol=1e-4, atol=1e-4)
+    cpu = DenseLM(f32.cfg, device="cpu", params=_tree(f32.params, "cpu"))
+    want32, _ = cpu.prefill({"tokens": tok.cpu()}, cache_len=48)
+    torch.testing.assert_close(got32.cpu(), want32, rtol=1e-4, atol=1e-4)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref32).abs().mean()) <= \
+        2 * float((plain_out - ref32).abs().mean())
+
+    before = fops.KERNEL_LAUNCHES
+    model.decode_step(tok[:, -1:], cache, 40)
+    out = greedy_generate(model, {"tokens": tok}, steps=4, cache_len=48)
+    torch.cuda.synchronize()
+    assert fops.KERNEL_LAUNCHES == before + cfg.n_layers   # one prefill
+    assert out.shape == (2, 4) and out.dtype == torch.int32
+
+
+def _tree(params, device=None):
+    return {k: _tree(v, device) if isinstance(v, torch.nn.ParameterDict)
+            else (v.detach() if device is None else v.detach().to(device))
+            for k, v in params.items()}
