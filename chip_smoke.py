@@ -15,15 +15,19 @@ prints no result line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
-              ptxas' register report)
+              ptxas' register report); cuobjdump counts the HGMMA (wgmma)
+              and UTMALDG (TMA tensor load) instructions of the bf16 flash
+              kernel, and the run fails without either, or when ptxas
+              reports that it serialised the kernel's wgmma (C7514)
   2. kernels  kernel vs plain version on the card:
               pregel_superstep for every (state dtype, edge program,
               monoid, channel dtype) the slice uses, on ragged shapes and
               on the uncapped in-ELL layouts of the phase-3 and phase-4
               graphs; ell_intersect on sorted row pairs (K = 1, ragged K,
               K = 3000, all-sentinel and identical rows); ell_spmv
-              (ell_combine, which launches the superstep kernel) on ragged
-              shapes; flash_attention at the Gemma-2 2B prefill shapes
+              (ell_combine) on ragged shapes and on masks with holes,
+              misaligned rows, clamped ids and inf/NaN behind dead slots;
+              flash_attention at the Gemma-2 2B prefill shapes
               (B = 2, S = 8192, GQA 8/4, D = 256, bf16, softcap 50, window
               4096 and 0), SmolLM's (2 x 8192, 15/5, D = 64) and
               Granite's (1 x 8192, 32/8, D = 128), and ragged float32 MQA
@@ -38,7 +42,8 @@ prints no result line:
               (median of 10 samples of 10 back-to-back calls; the plain
               versions at the main-path shapes 3 samples of 1) beside
               the bound and, where one PyTorch call computes the same
-              function, its time
+              function, its time (at the Gemma-2 global shape also SDPA
+              without the softcap, a yardstick that does less work)
   3. engine   on the V = 2^20 identifier graph through ``LocalEngine.run``:
               CC, BFS (4 sources), SSSP and k-core (k = 4) with variant
               dense, fused and frontier, and fused once more with
@@ -401,10 +406,38 @@ def _plain_by_rows(fn, nbr, mask, w, x, op, rows=1 << 21):
                          x, op=op) for i in range(0, nbr.shape[0], rows)])
 
 
+def _holey(v, k, off, gen):
+    """An ELL layout whose masks have holes (live slots not a prefix of
+    the row) and all-dead rows, with negative and sentinel ids at live
+    slots, inf and NaN in x (and inf in w) only behind dead slots, and
+    the mask's rows misaligned by ``off`` bytes from 16."""
+    import torch
+    dev = torch.device("cuda", 0)
+    vx = v + 2
+    nbr = torch.randint(-2, vx + 2, (v, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    live = torch.rand((v, k), generator=gen, device=dev) < 0.4
+    live[::5] = False
+    if k > 1:
+        live[1::5, 0] = False
+        live[1::5, -1] = True
+    nbr[live & ((nbr == 5) | (nbr == 6))] = 7
+    nbr[~live] = 5 + (torch.arange(v * k, device=dev).view(v, k)[~live]
+                      % 2).int()
+    mask = torch.zeros(v * k + off, dtype=torch.bool, device=dev)[off:]
+    mask = mask.view(v, k)
+    mask.copy_(live)
+    w = torch.rand((v, k), generator=gen, device=dev) + 0.1
+    w[~live] = float("inf")
+    x = torch.rand(vx, generator=gen, device=dev)
+    x[5], x[6] = float("inf"), float("nan")
+    return nbr, mask, w, x
+
+
 def check_combine(label, nbr, mask, w, x, timed, results, path_out=None):
-    """ell_spmv (the superstep kernel) vs ell_combine_plain for sum, min
-    and max on one layout; ``path_out`` (op -> output) holds what a path
-    computed on the same inputs, which must be the same bytes."""
+    """ell_spmv (the ell_combine kernel) vs ell_combine_plain for sum,
+    min and max on one layout; ``path_out`` (op -> output) holds what a
+    path computed on the same inputs, which must be the same bytes."""
     import torch
     from repro_torch.kernels.ell_combine import ops as cops
     from repro_torch.kernels.ell_combine.ref import ell_combine_plain
@@ -522,7 +555,7 @@ FLASH_SHAPES = [
 # ``REL_TOL``, one bf16 rounding of each side; the absolute bound alone
 # is as large as a long row's typical output.
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# a kv tile of the kernel
+# a key tile of the kernel at D = 256 (128 keys at D <= 128 in bf16)
 FLASH_TILE = 64
 
 
@@ -1306,6 +1339,7 @@ def _param_tree(params):
 def build_all():
     """Every kernel library at once: one nvcc per library, in threads."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ell_combine import ops as cops
     from repro_torch.kernels.ell_intersect import ops as iops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.pregel_superstep import ops as sops
@@ -1319,14 +1353,16 @@ def build_all():
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=build, args=(f,))
-               for f in (sops.library, iops.library, fops.library)]
+               for f in (sops.library, iops.library, cops.library,
+                         fops.library)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    for name in ("pregel_superstep", "ell_intersect", "flash_attention"):
+    for name in ("pregel_superstep", "ell_intersect", "ell_combine",
+                 "flash_attention"):
         info = _build.BUILD_LOG[name]
         lines = info["log"].splitlines()
         regs = sorted({ln.split("Used ")[1].split(",")[0]
@@ -1337,6 +1373,48 @@ def build_all():
         log(f"build {name}: {info['seconds']:.1f} s, registers per thread "
             f"{regs}, spills {spills}")
     log(f"build: all libraries in {time.perf_counter() - t0:.1f} s")
+    # ptxas serialises every wgmma of a kernel (its warning C7514) when a
+    # path may read an accumulator while a wgmma writing it is in flight:
+    # the kernel stays right but loses its overlap of softmax and products
+    serial = [ln for ln in _build.BUILD_LOG["flash_attention"]["log"]
+              .splitlines() if "C7514" in ln]
+    if serial:
+        fail(f"ptxas serialised the flash kernel's wgmma: {serial[0]}")
+    return flash_sass(_build.BUILD_LOG["flash_attention"]["path"])
+
+
+def cuobjdump_path() -> str:
+    """cuobjdump from the CUDA toolkit that builds the kernels (beside
+    nvcc)."""
+    from repro_torch.kernels import _build
+    here = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not here.exists():
+        fail(f"cuobjdump not found beside nvcc: {here}")
+    return str(here)
+
+
+def flash_sass(lib: str) -> dict:
+    """Counts of Hopper's warpgroup MMA (HGMMA) and TMA (UTMALDG, UBLKCP)
+    instructions in the SASS of the bf16 flash kernel; fails when either
+    is missing."""
+    out = subprocess.run([cuobjdump_path(), "-sass", lib],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[:2000]}")
+    counts = {k: 0 for k in ("HGMMA", "UTMALDG", "UBLKCP")}
+    in_bf16 = False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            in_bf16 = "flash_fwd_wgmma_kernel" in line
+        elif in_bf16:
+            for k in counts:
+                if k in line:
+                    counts[k] += 1
+    log(f"build flash_attention: SASS of the bf16 kernel {json.dumps(counts)}")
+    if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
+        fail(f"the bf16 flash kernel has no wgmma or no TMA tensor load in "
+             f"its SASS: {counts}")
+    return counts
 
 
 def main() -> int:
@@ -1366,7 +1444,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     # 1. build
-    build_all()
+    sass = build_all()
 
     # graphs (host build; the main-path graph is reused by phases 2 and 4)
     g3 = identifier_graph(PHASE3_LOG2V, seed=0)
@@ -1394,6 +1472,10 @@ def main() -> int:
         check_combine(f"ragged {v}x{k}", nbr, mask, w,
                       torch.rand(v, generator=gen, device="cuda"), False,
                       checks)
+    for v, k, off in ((1000, 7, 3), (4096, 128, 0), (500, 129, 5),
+                      (40, 3000, 1)):
+        check_combine(f"holes {v}x{k}, rows off 16 B by {off}",
+                      *_holey(v, k, off, gen), False, checks)
 
     # 3-5. the paths; every count is set to 0 just before a path runs
     # and read just after it
@@ -1478,8 +1560,8 @@ def main() -> int:
          "shape": f"per-edge counts over the V=2^{MAIN_LOG2V} OrientedELL, "
                   f"K={inter['K']}, {inter['padded_edges']} padded edges"},
         {"name": "ell_combine", "route": "cuda",
-         "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
-                   "superstep.cu",
+         "source": "src/repro_torch/kernels/ell_combine/csrc/"
+                   "ell_combine.cu",
          "replaces": "src/repro/kernels/ell_combine/kernel.py:37",
          "launches": sum(by_path("ell_combine").values()),
          "launches_by_path": by_path("ell_combine"),
@@ -1497,6 +1579,7 @@ def main() -> int:
                         if r.get("kernel") == "flash_attention"),
          **{k: attn[k] for k in numbers},
          "library": attn["library"],
+         "sass": sass,
          "shape": "Gemma-2 2B global layer in prefill: B=2, S=8192, "
                   "Hq/Hkv=8/4, D=256, bf16, causal, softcap 50"}]}))
     log(json.dumps({"ok": True, "device": {

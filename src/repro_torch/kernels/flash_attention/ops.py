@@ -6,14 +6,18 @@ in q's dtype.  For tensors on the CPU it runs the plain version
 (``ref.mha_plain``).  For CUDA tensors it launches the CUDA kernel or
 raises ``ValueError`` for an input the kernel does not take (another
 dtype than float32/bfloat16, a head dim other than 16/32/64/128/256,
-a last dimension that is not contiguous, misaligned rows, mismatched
-shapes or devices): nothing falls back.  Callers that want the plain
-version on the card (parity runs) pass ``use_kernels=False``.
+a last dimension that is not contiguous, misaligned rows, a bfloat16
+broadcast view, mismatched shapes or devices): nothing falls back.
+Callers that want the plain version on the card (parity runs) pass
+``use_kernels=False``.
 
 The kernel reads q, k and v at their own strides, so the transposed
 views of the model's ``[B, S, H, D]`` activations go in without a copy;
 the kv head of query head ``h`` is ``h // (Hq // Hkv)``, read in place
-(the reference repeats k and v per group first).
+(the reference repeats k and v per group first).  bfloat16 runs the
+Hopper kernel (TMA tensor maps over those strided views, wgmma, a
+producer warpgroup beside two consumer warpgroups); float32 runs the FMA
+kernel, exact to summation order.
 """
 from __future__ import annotations
 
@@ -54,9 +58,9 @@ def library():
 
 
 def _check(q, k, v):
+    """Raise ``ValueError`` for an input the kernel does not take (the
+    device last, so the layout rules can be checked on any tensor)."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} is not "
                          "float32 or bfloat16")
@@ -78,7 +82,10 @@ def _check(q, k, v):
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in "
                          f"{HEAD_DIMS}")
-    if b > 65535 or hq > 65535 or s >= 2 ** 31:
+    # grid: bfloat16 (heads, batch, 128-row query tiles), float32
+    # (64-row query tiles, heads, batch)
+    max_s = 65535 * 128 if q.dtype == torch.bfloat16 else 2 ** 31 - 1
+    if b > 65535 or hq > 65535 or s > max_s:
         raise ValueError(f"flash_attention: B={b}, Hq={hq}, S={s} exceed "
                          "the grid")
     # 16-byte row reads: the last dim contiguous, every row 16-byte aligned
@@ -90,6 +97,14 @@ def _check(q, k, v):
         if t.data_ptr() % 16 or any(t.stride(i) % vec for i in range(3)):
             raise ValueError(f"flash_attention: {name}'s rows are not "
                              "16-byte aligned")
+        # the bf16 kernel's TMA copies step through memory by each stride
+        if q.dtype == torch.bfloat16 and any(
+                t.stride(i) == 0 and t.shape[i] > 1 for i in range(3)):
+            raise ValueError(f"flash_attention: {name} has a zero stride "
+                             "(a broadcast view); bfloat16 tiles are copied "
+                             "by TMA, which needs distinct rows")
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
 
 
 def _launch(q, k, v, causal: bool, window: int, softcap: float):

@@ -124,72 +124,55 @@ def fused_superstep(nbr, mask, w, x, *, message, op: str, identity,
         return superstep_plain(nbr, mask, w, x, message=message, op=op,
                                identity=identity,
                                message_dtype=message_dtype)
-    out, launched = launch(nbr, mask, w, x, message=message, op=op,
-                           fill=fill_value(op, identity),
-                           message_dtype=message_dtype)
-    if launched:
-        with _COUNT_LOCK:
-            KERNEL_LAUNCHES += 1
-    return out
-
-
-def launch(nbr, mask, w, x, *, message, op, fill, message_dtype=None,
-           caller: str = "fused_superstep"):
-    """Check the arguments and launch the kernel on ``x``'s stream.
-
-    Returns ``(out, launched)``; ``launched`` is False only for an empty
-    output.  Counts nothing: each wrapper that launches through here
-    (``fused_superstep``, ``ell_combine.ops.ell_spmv``) keeps its own
-    count.  Raises ``ValueError`` (prefixed with ``caller``) for an input
-    the kernel does not take.
-    """
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"{caller}: unsupported device {dev}")
+        raise ValueError(f"fused_superstep: unsupported device {dev}")
     if not compiled(message):
         raise ValueError(
-            f"{caller}: {getattr(message, '__name__', message)!r} is "
-            f"not a compiled edge program; use one of "
+            f"fused_superstep: {getattr(message, '__name__', message)!r} is "
+            "not a compiled edge program; use one of "
             f"{[f.__name__ for f in EDGE_PROGRAMS]}")
     if op not in _OPS:
-        raise ValueError(f"{caller}: unknown op {op!r}")
+        raise ValueError(f"fused_superstep: unknown op {op!r}")
     if x.dim() != 1 or x.dtype not in (torch.int32, torch.float32):
-        raise ValueError(f"{caller}: the kernel takes 1-D int32 or "
+        raise ValueError("fused_superstep: the kernel takes 1-D int32 or "
                          f"float32 state, got {tuple(x.shape)} {x.dtype}")
     if nbr.dim() != 2 or nbr.dtype != torch.int32:
-        raise ValueError(f"{caller}: nbr must be [V, K] int32")
+        raise ValueError("fused_superstep: nbr must be [V, K] int32")
     V, K = nbr.shape
     if mask.dtype != torch.bool or tuple(mask.shape) != (V, K):
-        raise ValueError(f"{caller}: mask must be [V, K] bool")
+        raise ValueError("fused_superstep: mask must be [V, K] bool")
     if w.dtype != torch.float32 or tuple(w.shape) != (V, K):
-        raise ValueError(f"{caller}: w must be [V, K] float32")
+        raise ValueError("fused_superstep: w must be [V, K] float32")
     for name, t in (("nbr", nbr), ("mask", mask), ("w", w), ("x", x)):
         if t.device != dev:
-            raise ValueError(f"{caller}: {name} is on {t.device}, "
+            raise ValueError(f"fused_superstep: {name} is on {t.device}, "
                              f"x on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"{caller}: {name} must be contiguous")
+            raise ValueError(f"fused_superstep: {name} must be contiguous")
     out_dtype = kernel_out_dtype(x, message, message_dtype)
     if out_dtype not in _DTYPES:
-        raise ValueError(f"{caller}: unsupported message dtype "
+        raise ValueError("fused_superstep: unsupported message dtype "
                          f"{out_dtype}")
     if out_dtype == torch.int32 and not (message is msg_src
                                          and x.dtype == torch.int32):
-        raise ValueError(f"{caller}: an int32 channel needs an int32 "
+        raise ValueError("fused_superstep: an int32 channel needs an int32 "
                          "message")
     out = torch.empty(V, dtype=out_dtype, device=dev)
     if V == 0:
-        return out, False
+        return out
     if x.shape[0] == 0:
-        raise ValueError(f"{caller}: empty gather source")
+        raise ValueError("fused_superstep: empty gather source")
     lib = library()
     with torch.cuda.device(dev):
         rc = lib.pregel_superstep(
             nbr.data_ptr(), mask.data_ptr(), w.data_ptr(), x.data_ptr(),
             out.data_ptr(), V, K, x.shape[0], _DTYPES[x.dtype],
             EDGE_PROGRAMS[message], _OPS[op], _DTYPES[out_dtype],
-            float(fill), _lanes_log2(K),
+            float(fill_value(op, identity)), _lanes_log2(K),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pregel_superstep launch failed: CUDA error {rc}")
-    return out, True
+    with _COUNT_LOCK:
+        KERNEL_LAUNCHES += 1
+    return out

@@ -1,7 +1,6 @@
-"""The port on the card: the CUDA kernels (and ``ell_spmv``, which
-launches the superstep kernel) against their plain versions, the engines
-and platform on ``cuda:0`` against the same port on the CPU, and the
-dense LM's prefill and decode through the flash kernel.
+"""The port on the card: the CUDA kernels against their plain versions,
+the engines and platform on ``cuda:0`` against the same port on the CPU,
+and the dense LM's prefill and decode through the flash kernel.
 
 Every test needs a CUDA device and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the reference package, so
@@ -294,6 +293,54 @@ def test_ell_spmv_raises_on_what_it_does_not_take():
         cops.ell_spmv(nbr.t().contiguous().t(), mask, w, x, op="min")
 
 
+def _ell_case(v, k, off, seed):
+    """Masks with holes and all-dead rows; negative and sentinel ids at
+    live slots (clamped to the ends of x); inf and NaN in x, and inf in
+    w, only behind dead slots; the mask's rows misaligned by ``off``
+    bytes from 16."""
+    rng = np.random.default_rng(seed)
+    vx = v + 2
+    nbr = rng.integers(-2, vx + 2, (v, k)).astype(np.int32)
+    mask = rng.random((v, k)) < 0.4
+    mask[::5] = False
+    if k > 1:
+        mask[1::5, 0] = False
+        mask[1::5, -1] = True
+    live = nbr[mask]
+    nbr[mask] = np.where((live == 5) | (live == 6), 7, live)
+    nbr[~mask] = 5 + np.arange(int((~mask).sum())) % 2
+    w = rng.uniform(0.1, 2.0, (v, k)).astype(np.float32)
+    w[~mask] = np.inf
+    x = rng.random(vx).astype(np.float32)
+    x[5], x[6] = np.inf, np.nan
+    buf = torch.zeros(v * k + off, dtype=torch.bool, device="cuda")
+    m = buf[off:].view(v, k)
+    m.copy_(torch.from_numpy(mask))
+    return [torch.from_numpy(a).cuda() for a in (nbr,)] + [m] + \
+        [torch.from_numpy(a).cuda() for a in (w, x)]
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 128, 129, 3000])
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_ell_spmv_kernel_holes_ids_and_misaligned_rows(k, off, op):
+    v = 40 if k >= 1000 else 300
+    nbr, mask, w, x = _ell_case(v, k, off, seed=k * 7 + off)
+    assert k == 0 or mask.data_ptr() % 16 == off   # (empty: no storage)
+    before = (cops.KERNEL_LAUNCHES, ops.KERNEL_LAUNCHES)
+    got = cops.ell_spmv(nbr, mask, w, x, op=op)
+    torch.cuda.synchronize()
+    assert (cops.KERNEL_LAUNCHES, ops.KERNEL_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    want = ell_combine_plain(nbr, mask, w, x, op=op)
+    assert not bool(got.isnan().any()) and not bool(want.isnan().any())
+    if op == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+        assert bool((got[::5] == 0).all())
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 # ------------------------------------------------------- cohesion queries
 
 def test_cohesion_queries_on_the_card_match_the_cpu():
@@ -393,6 +440,83 @@ def test_flash_kernel_reads_strided_views():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("d", fops.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 77, 1000, 8193])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+def test_flash_bf16_every_head_dim_and_length(d, s, g):
+    """The Hopper kernel at every head dim it takes, lengths around its
+    128-row query tile and its 64/128-key tiles (8193: one past 64 of
+    them), causal, G query heads per kv head (2 kv heads)."""
+    q, k, v = _attn(1, 2 * g, 2, s, d, torch.bfloat16, seed=s * d + g)
+    before = fops.KERNEL_LAUNCHES
+    got = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fops.KERNEL_LAUNCHES == before + 1
+    want = mha_plain(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert rel_err(got, want) <= REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bf16_query_groups(g, d):
+    """GQA with G query heads per kv head, each reading its kv head in
+    place; non-causal, so every key tile is open."""
+    q, k, v = _attn(2, 2 * g, 2, 300, d, torch.bfloat16, seed=g + d)
+    got = fops.flash_attention(q, k, v, causal=False)
+    assert rel_err(got, mha_plain(q, k, v, causal=False)) <= \
+        REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("window", [1, 5, 40, 100])
+def test_flash_bf16_windows_inside_a_tile(d, window):
+    """Windows smaller than a key tile: most tiles of the band are
+    skipped, and the open ones are masked on both sides."""
+    q, k, v = _attn(1, 4, 2, 777, d, torch.bfloat16, seed=window + d)
+    kw = dict(causal=True, window=window, softcap=30.0)
+    got = fops.flash_attention(q, k, v, **kw)
+    assert rel_err(got, mha_plain(q, k, v, **kw)) <= REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bf16_window_of_s_or_more_masks_nothing(d):
+    q, k, v = _attn(1, 4, 2, 500, d, torch.bfloat16, seed=d)
+    full = fops.flash_attention(q, k, v, causal=True)
+    for window in (500, 501, 10 ** 6):
+        assert torch.equal(fops.flash_attention(q, k, v, causal=True,
+                                                window=window), full)
+
+
+@pytest.mark.parametrize("d", fops.HEAD_DIMS)
+def test_flash_bf16_softcap_at_the_cap_every_head_dim(d):
+    """q scaled by 10: logits up to about 50, bent hard by a softcap of
+    50; the kernel launched without it must fail the same bound."""
+    q, k, v = _attn(2, 4, 2, 600, d, torch.float32, seed=d + 2)
+    q, k, v = (q * 10).bfloat16(), k.bfloat16(), v.bfloat16()
+    kw = dict(causal=True, softcap=50.0)
+    want = mha_plain(q, k, v, **kw)
+    assert rel_err(fops.flash_attention(q, k, v, **kw), want) <= \
+        REL_TOL[torch.bfloat16]
+    assert rel_err(fops.flash_attention(q, k, v, causal=True), want) > \
+        10 * REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("d", fops.HEAD_DIMS)
+def test_flash_bf16_reads_the_models_transposed_views(d):
+    """[B, S, H, D] activations, transposed: TMA walks their strides, no
+    copy, and the result is the contiguous inputs' bytes."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _attn(2, 8, 4, 333, d, torch.bfloat16, seed=d + 3))
+    assert not q.is_contiguous()
+    kw = dict(causal=True, window=200)
+    got = fops.flash_attention(q, k, v, **kw)
+    want = fops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), **kw)
+    assert torch.equal(got, want)
+    assert rel_err(got, mha_plain(q, k, v, **kw)) <= REL_TOL[torch.bfloat16]
+
+
 def test_flash_kernel_raises_on_what_it_does_not_take():
     q, k, v = _attn(1, 4, 2, 64, 64, torch.float32, seed=4)
     with pytest.raises(ValueError, match="dtype"):
@@ -409,6 +533,12 @@ def test_flash_kernel_raises_on_what_it_does_not_take():
                              k, v)
     with pytest.raises(ValueError, match="aligned"):
         fops.flash_attention(q[..., 1:33], k[..., 1:33], v[..., 1:33])
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    with pytest.raises(ValueError, match="zero stride"):
+        fops.flash_attention(qb, kb[:, :1].expand(1, 2, 64, 64),
+                             vb[:, :1].expand(1, 2, 64, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        fops.flash_attention(qb[..., 4:36], kb[..., 4:36], vb[..., 4:36])
 
 
 # --------------------------------------------------------------- LM serving

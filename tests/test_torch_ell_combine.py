@@ -1,14 +1,16 @@
 """The ELL gather + combine (``ell_spmv``) against the JAX reference
 (``repro.kernels.ell_combine``), as ``tests/test_kernels.py`` holds JAX's
-Pallas kernel to its oracle: ragged shapes, empty rows, a dense matmul.
+Pallas kernel to its oracle: ragged shapes, empty rows, a dense matmul,
+masks with holes and inf/NaN behind dead slots (the contract the card
+kernel is held to), and the wrapper's checks.
 
 min/max are exact.  A float sum differs from JAX's only in summation
 order, so it is held within 1e-6 of the row's sum of absolute terms (a
 few float32 ulps of the largest partial sum; a plain rtol fails where
 terms cancel).  For CPU tensors the wrapper runs the plain version and
-launches nothing; on the card it launches the superstep kernel, held
-against the plain version by ``chip_smoke.py`` and
-``tests/test_torch_cuda.py``.
+launches nothing; on the card it launches its own kernel
+(``csrc/ell_combine.cu``), held against the plain version by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -126,3 +128,82 @@ def test_local_engine_binds_spmv():
     assert plain._spmv(ell.nbr, ell.mask, ell.w, x, "sum").tolist() == \
         [5.0, 4.0, 3.0]
     assert plain.for_pool(None) is plain
+
+
+def _holey(v, k, vx, seed):
+    """Masks with holes (the live slots of a row are not a prefix),
+    all-dead rows, and negative and sentinel ids, which the clamp maps to
+    the ends of ``x``."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(-2, vx + 2, (v, k)).astype(np.int32)
+    mask = rng.random((v, k)) < 0.4
+    mask[::5] = False                     # rows without a live slot
+    if k > 1:
+        mask[1::5, 0] = False             # a hole before live slots
+        mask[1::5, -1] = True
+    w = rng.standard_normal((v, k)).astype(np.float32)
+    x = rng.standard_normal(vx).astype(np.float32)
+    return nbr, mask, w, x
+
+
+@pytest.mark.parametrize("v,k,vx", [(40, 7, 50), (33, 129, 70), (16, 1, 9),
+                                    (6, 3000, 400), (25, 128, 25),
+                                    (70, 16, 90), (9, 512, 40),
+                                    (31, 33, 20)])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_ell_spmv_masks_with_holes_match_reference(v, k, vx, op):
+    """The contract the kernel is held to: any slot may be live, not only
+    a prefix of the row; ids outside [0, Vx) are clamped."""
+    nbr, mask, w, x = _holey(v, k, vx, v * k)
+    got = ops.ell_spmv(*(torch.from_numpy(a) for a in (nbr, mask, w, x)),
+                       op=op)
+    want = j_ref(*(jnp.asarray(a) for a in (nbr, mask, w, x)), op=op)
+    _check(got.numpy(), want, op, nbr, mask, w, x)
+    ident = {"sum": 0.0, "min": np.inf, "max": -np.inf}[op]
+    assert (got.numpy()[::5] == ident).all()
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_dead_slots_hide_inf_and_nan(op):
+    """``x`` holds inf and NaN (and ``w`` inf) only behind dead slots:
+    ``where(mask, w * x, id)`` never lets them reach the result, as the
+    reference does not."""
+    v, k, vx = 64, 16, 80
+    nbr, mask, w, x = _inputs(v, k, vx, 21)
+    x[vx - 2:] = [np.inf, np.nan]
+    nbr[mask] %= vx - 2                   # live slots read finite values
+    nbr[~mask] = np.where(np.arange(int((~mask).sum())) % 2, vx - 1, vx - 2)
+    w[~mask] = np.inf
+    got = ops.ell_spmv(*(torch.from_numpy(a) for a in (nbr, mask, w, x)),
+                       op=op).numpy()
+    want = np.asarray(j_ref(*(jnp.asarray(a) for a in (nbr, mask, w, x)),
+                            op=op))
+    live_rows = mask.any(axis=1)
+    assert np.isfinite(got[live_rows]).all()
+    assert not np.isnan(got).any()
+    with np.errstate(invalid="ignore"):   # inf * 0 behind dead slots
+        _check(got, want, op, nbr, mask, w, x)
+
+
+def test_kernel_argument_checks_on_any_device():
+    """The wrapper's checks run before the device test, so each is seen
+    here on CPU tensors; a layout the kernel takes reaches the device
+    test, which is what a CPU tensor fails."""
+    nbr, mask, w, x = (torch.from_numpy(a) for a in _inputs(6, 4, 6, 0))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.check(nbr, mask, w, x, "sum")
+    bad = [((nbr, mask, w, x.double()), "float32"),
+           ((nbr, mask, w, x[None]), "1-D"),
+           ((nbr.long(), mask, w, x), "int32"),
+           ((nbr, mask.int(), w, x), "bool"),
+           ((nbr, mask, w[:, :3], x), "float32"),
+           ((nbr.t().contiguous().t(), mask, w, x), "contiguous"),
+           ((nbr, mask, w, x[:0]), "empty gather source")]
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            ops.check(*args, "min")
+    with pytest.raises(ValueError, match="unknown op"):
+        ops.check(nbr, mask, w, x, "mean")
+    wide = torch.empty((0, ops.MAX_K + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.check(wide, wide.bool(), wide.float(), x, "sum")

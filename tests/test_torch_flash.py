@@ -137,3 +137,52 @@ def test_flash_rejects_bad_options():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 3, 2, 16, 16, seed=3))
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 4, 2, 200, 64), dict(causal=True, window=40)),
+    ((2, 2, 1, 333, 32), dict(causal=True, window=17, softcap=30.0)),
+    ((1, 3, 1, 129, 16), dict(causal=False, window=63)),
+    ((1, 2, 2, 255, 128), dict(causal=True, window=1)),
+], ids=str)
+def test_flash_ragged_length_short_window_matches_oracle(shape, kw, dtype):
+    """S not a multiple of the card kernel's 128-row query tile, windows
+    under one 64-key tile: the plain version the kernel is held to agrees
+    with the reference's oracle (in bfloat16 within its own tolerance)."""
+    arrs = _inputs(*shape, seed=shape[3] + kw["window"])
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_port(arrs, dtype, **kw),
+                               _ref(mha_reference, arrs, dtype, **kw),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_kernel_argument_checks_on_any_device():
+    """The wrapper's checks run before the device test, so each is seen
+    here on CPU tensors; a layout the kernel takes (the model's
+    transposed [B, S, H, D] views included) reaches the device test."""
+    from repro_torch.kernels.flash_attention.ops import _check
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(1, 4, 2, 64, 64, seed=4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        _check(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    with pytest.raises(ValueError, match="unsupported device"):
+        _check(qt, kt, vt)
+    # k and v broadcast over their heads (stride 0): TMA cannot walk them
+    kb, vb = (t[:, :1].expand(1, 2, 64, 64) for t in (k, v))
+    with pytest.raises(ValueError, match="zero stride"):
+        _check(q, kb, vb)
+    with pytest.raises(ValueError, match="unsupported device"):
+        _check(q.float(), kb.float(), vb.float())   # the FMA kernel reads them
+    with pytest.raises(ValueError, match="aligned"):
+        _check(q[..., 1:33], k[..., 1:33], v[..., 1:33])
+    with pytest.raises(ValueError, match="head dim"):
+        _check(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="contiguous"):
+        _check(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        _check(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="do not fit"):
+        _check(q, k[:, :, :32], v[:, :, :32])
