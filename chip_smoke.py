@@ -21,10 +21,14 @@ prints no result line:
               reports that it serialised the kernel's wgmma (C7514)
   2. kernels  kernel vs plain version on the card:
               pregel_superstep for every (state dtype, edge program,
-              monoid, channel dtype) the slice uses, on ragged shapes and
-              on the uncapped in-ELL layouts of the phase-3 and phase-4
-              graphs; ell_intersect on sorted row pairs (K = 1, ragged K,
-              K = 3000, all-sentinel and identical rows); ell_spmv
+              monoid, channel dtype) the slice uses, on ragged shapes (K
+              = 0 to 3000), masks with holes and rows off 16-byte
+              alignment, and on the uncapped in-ELL layouts of the
+              phase-3 and phase-4 graphs, the 2^24 one also under a
+              seeded permutation of its ids;
+              ell_intersect on sorted row pairs (K = 1, 9, 31, 32, 33,
+              ragged K, K = 3000, all-sentinel and identical rows) and on
+              runs of one eu that cross warps and blocks; ell_spmv
               (ell_combine) on ragged shapes and on masks with holes,
               misaligned rows, clamped ids and inf/NaN behind dead slots;
               flash_attention at the Gemma-2 2B prefill shapes
@@ -53,7 +57,12 @@ prints no result line:
               launches it; triangle counting (intersect: ell_intersect,
               one launch) against scipy and k-core against its peeling
               oracle; on the V = 2^14 graph the bitset variant equals the
-              intersect variant equals scipy
+              intersect variant equals scipy.  Then (outside the path's
+              count) the fused BFS and SSSP once more with CUDA events
+              around every pregel_superstep launch call (launch latency
+              included: an upper bound of the kernel's share) beside the
+              wall time per superstep, and the share of the kernel's
+              back-to-back time from phase 2
   4. platform ``GraphPlatform`` on the V = 2^24 identifier graph (~130 M
               directed edges, the paper's "combined connected users"):
               CC, CC count, BFS and weighted SSSP (64-superstep bound), a
@@ -85,8 +94,9 @@ prints no result line:
               events around its 26 launches) and its share
 
 Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
-``OrientedELL``, ell_spmv over the capped ELL) run after phases 4-5, on
-the platform's own derived state, and are timed there.  Every graph
+``OrientedELL``, and over one built from the same edges under the
+seeded permutation of ids, ell_spmv over the capped ELL) run after
+phases 4-5, on the platform's own derived state, and are timed there.  Every graph
 carries random link weights from the seed, multiples of 1/4 in [1, 4]:
 float32 path sums are exact, so SSSP is checked exactly and a kernel that
 misreads ``w`` disagrees.  Kernel launches are counted per path: every
@@ -119,6 +129,7 @@ BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+PERMUTATION_SEED = 16      # the permuted-id copies of the 2^24 graph
 PAGERANK_HALT_L1 = 1e-5    # PageRank halts when an iteration moves < this
 PAGERANK_L1_TOL = 1e-4
 TIMING_REPS = 10
@@ -320,6 +331,23 @@ def check_kernel(label, nbr, mask, w, gen, timed, results):
             fail(f"kernel disagrees with its plain version: {row}")
 
 
+def permuted_in_ell(nbr, mask, w, perm):
+    """The same in-ELL under a permutation of the vertex ids, built on the
+    card: row perm[v] holds row v with every id j < V renamed perm[j]
+    (the sentinel V kept); degrees, K and live slots are unchanged."""
+    import torch
+    V = nbr.shape[0]
+    rows = perm.long()
+    nbr_p = torch.empty_like(nbr)
+    nbr_p[rows] = torch.where((nbr >= 0) & (nbr < V),
+                              perm[nbr.clamp(0, V - 1).long()], nbr)
+    mask_p = torch.empty_like(mask)
+    mask_p[rows] = mask
+    w_p = torch.empty_like(w)
+    w_p[rows] = w
+    return nbr_p, mask_p, w_p
+
+
 def _library_spmv_ms(nbr, mask, w, x, want):
     """One PyTorch call computing the same weighted sum: a CSR sparse
     matrix-vector product over the same layout (timed here only; the port
@@ -356,6 +384,24 @@ def _ids(rng, e, k, vx, fill=0.6):
     return rows
 
 
+def _runs(k):
+    """An orientation-shaped input: rows of at most k sorted ids and the
+    all-sentinel row V; edges grouped by eu in runs of 1 to 300 (across
+    warps and blocks of 256 edges), then padding edges eu = ev = V."""
+    import numpy as np
+    rng = np.random.default_rng(k)
+    V = 700
+    nbr = _ids(rng, V + 1, k, V, fill=1.0)
+    nbr[V] = V
+    lengths = [1, 31, 32, 33, 255, 256, 257, 300, 2, 3, 64, 7]
+    eu = np.repeat(np.sort(rng.choice(V, len(lengths), replace=False)),
+                   lengths)
+    ev = rng.integers(0, V, eu.size)
+    eu = np.concatenate([eu, np.full(100, V)]).astype(np.int32)
+    ev = np.concatenate([ev, np.full(100, V)]).astype(np.int32)
+    return nbr, (eu, ev), V
+
+
 def check_intersect_rows(results):
     """ell_intersect on sorted row pairs: ragged shapes, K = 1, K past
     the reference's 2048-slot VMEM bound, all-sentinel and identical
@@ -367,7 +413,8 @@ def check_intersect_rows(results):
     cases = []
     for e, k, vx in ((16, 8, 40), (100, 37, 64), (256, 128, 500),
                      (7, 200, 300), (64, 1, 10), (1000, 33, 2000),
-                     (40, 3000, 100000)):
+                     (40, 3000, 100000), (700, 9, 300), (300, 31, 1000),
+                     (300, 32, 1000)):
         rng = np.random.default_rng(e * k)
         cases.append((f"rows {e}x{k}", _ids(rng, e, k, vx),
                       _ids(rng, e, k, vx), vx))
@@ -378,11 +425,20 @@ def check_intersect_rows(results):
     same = np.tile(np.array([2, 3, 5, 7, 11, 100, 100, 100], np.int32),
                    (8, 1))
     cases.append(("identical rows", same, same.copy(), 100))
+    for k in (9, 32, 33):
+        cases.append((f"runs of eu, K = {k}",) + _runs(k))
     for label, a, b, vx in cases:
-        ta, tb = (torch.from_numpy(t).cuda() for t in (a, b))
-        got = iops.ell_intersect(ta, tb, vx)
-        torch.cuda.synchronize()
-        want = ell_intersect_plain(ta, tb, vx)
+        if label.startswith("runs"):        # (nbr, (eu, ev)): one launch
+            ta = torch.from_numpy(a).cuda()
+            eu, ev = (torch.from_numpy(t).cuda() for t in b)
+            got = iops._launch(ta, eu, ev, vx)
+            torch.cuda.synchronize()
+            want = ell_intersect_plain(ta[eu.long()], ta[ev.long()], vx)
+        else:
+            ta, tb = (torch.from_numpy(t).cuda() for t in (a, b))
+            got = iops.ell_intersect(ta, tb, vx)
+            torch.cuda.synchronize()
+            want = ell_intersect_plain(ta, tb, vx)
         ok = torch.equal(got, want)
         if label == "all-sentinel rows":
             ok = ok and not bool(got.any())
@@ -473,8 +529,8 @@ def check_combine(label, nbr, mask, w, x, timed, results, path_out=None):
             fail(f"ell_spmv disagrees with its plain version: {row}")
 
 
-def check_intersect_main(o, results):
-    """ell_intersect_counts over the main-path OrientedELL: kernel vs
+def check_intersect_main(o, results, label):
+    """ell_intersect_counts over a main-shape OrientedELL: kernel vs
     plain exactly, timed, beside its bounds."""
     import torch
     from repro_torch.kernels.ell_intersect import ops as iops
@@ -501,7 +557,7 @@ def check_intersect_main(o, results):
     t_ops = ops / F32_OPS_PER_S * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
-    row = {"kernel": "ell_intersect", "layout": f"OrientedELL 2^{MAIN_LOG2V}",
+    row = {"kernel": "ell_intersect", "layout": label,
            "V": V, "K": K, "padded_edges": E, "edges": o.n_edges,
            "mean_fill": float(lengths[:V].double().mean()),
            "ok": bool(ok), "max_abs_err": max_abs_err(got, want),
@@ -778,6 +834,52 @@ def engine_phase(coo, coo_small):
     small = LocalEngine(coo_small)
     rows += triangle_rows(small, None, coo_small, f"2^{BITSET_LOG2V}",
                           bitset=True)
+    return rows, eng
+
+
+def superstep_breakdown(eng, engine_rows, checks):
+    """The fused BFS and SSSP of phase 3 once more, with CUDA events
+    around every pregel_superstep launch, beside the wall time per
+    superstep.  Every superstep ends in a halt read, so the device is
+    idle when each launch call starts: an event pair spans the call's
+    launch latency as well as the kernel, and its sum over the run is an
+    upper bound of the kernel's device time.  The kernel's time alone is
+    its back-to-back time at this layout from phase 2 (the same combo on
+    the 2^20 in-ELL, random state).  The rest of a superstep is the host:
+    the wrapper, the superstep's other operations and the halt read
+    (``.item()``)."""
+    import torch
+    from repro_torch.kernels.pregel_superstep import ops as sops
+    V = eng.coo.n_vertices
+    rows = []
+    for algo, params in (("bfs", {"sources": tuple(i * V // 4
+                                                   for i in range(4))}),
+                         ("sssp", {"source": V // 3})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_launches(sops, "pregel_superstep") as events:
+            r = eng.run(algo, params, variant="fused")
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / r.iterations
+        if len(events) != r.iterations:
+            fail(f"{algo}: {len(events)} timed launches in "
+                 f"{r.iterations} supersteps")
+        upper = sum(a.elapsed_time(e) for a, e in events) / r.iterations
+        untimed = next(x for x in engine_rows if x.get("algo") == algo
+                       and x.get("variant") == "fused")["ms_per_superstep"]
+        back_to_back = next(x for x in checks if x.get("combo") == algo
+                            and x["layout"] == f"in-ELL 2^{PHASE3_LOG2V}"
+                            )["ms"]
+        # both shares are of the phase's superstep wall without events
+        row = {"algo": algo, "supersteps": r.iterations,
+               "wall_ms_per_superstep_with_events": wall,
+               "launch_and_kernel_ms_per_superstep": upper,
+               "wall_ms_per_superstep": untimed,
+               "kernel_share_upper_bound": upper / untimed,
+               "kernel_back_to_back_ms": back_to_back,
+               "kernel_share_back_to_back": back_to_back / untimed}
+        rows.append(row)
+        log("superstep breakdown " + json.dumps(row))
     return rows
 
 
@@ -1085,27 +1187,29 @@ def _argmax_tokens(logits):
 
 
 @contextlib.contextmanager
-def timed_flash_launches():
-    """CUDA events around every ``flash_attention`` kernel launch in the
-    block, recorded on the launch's stream: the kernel's own device time
-    inside a path (yields the list of event pairs)."""
+def timed_launches(ops_module, entry):
+    """CUDA events around every call of a kernel library's C entry point
+    (``ops_module.library()``'s ``entry``) in the block, recorded on the
+    launch's stream: the kernel's own device time inside a path, the
+    wrapper's checks on the host left out (yields the list of event
+    pairs)."""
     import torch
-    from repro_torch.kernels.flash_attention import ops as fops
-    events, launch = [], fops._launch
+    lib = ops_module.library()
+    events, launch = [], getattr(lib, entry)
 
-    def timed(*args, **kwargs):
+    def timed(*args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = launch(*args, **kwargs)
+        rc = launch(*args)
         end.record()
         events.append((start, end))
-        return out
-    fops._launch = timed
+        return rc
+    setattr(lib, entry, timed)
     try:
         yield events
     finally:
-        fops._launch = launch
+        setattr(lib, entry, launch)
 
 
 def last_logits(m, batch, s):
@@ -1149,6 +1253,7 @@ def serve_phase():
     import dataclasses
 
     import torch
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.launch import serve
     from repro_torch.models.transformer import DenseLM
     from repro_torch.train.serve_step import greedy_generate
@@ -1207,7 +1312,7 @@ def serve_phase():
         torch.cuda.synchronize()
         before = launch_counts()
         t0 = time.perf_counter()
-        with timed_flash_launches() as events:
+        with timed_launches(fops, "flash_attention_fwd") as events:
             logits, cache = model.prefill(batch, cache_len=s + g)
             torch.cuda.synchronize()
         row["prefill_ms"] = (time.perf_counter() - t0) * 1e3
@@ -1456,14 +1561,33 @@ def main() -> int:
     gen.manual_seed(0)
     checks = []
     for v, k in ((1000, 37), (777, 5), (300, 1), (64, 0), (500, 33),
-                 (2000, 200)):
+                 (2000, 200), (1000, 19), (1001, 20), (300, 128),
+                 (40, 3000)):
         check_kernel(f"ragged {v}x{k}", *_ragged(v, k, gen), gen, False,
                      checks)
+    for v, k, off in ((1000, 19, 3), (500, 129, 5), (40, 3000, 1)):
+        nbr, mask, w, _ = _holey(v, k, off, gen)
+        check_kernel(f"holes {v}x{k}, rows off 16 B by {off}", nbr, mask, w,
+                     gen, False, checks)
+    # the main-shape layouts, and the 2^24 one under a seeded permutation
+    # of its ids (production ids carry no locality; the identifier
+    # graph's small id offsets make its gathers nearly sequential)
+    perm_gen = torch.Generator(device="cuda")
+    perm_gen.manual_seed(PERMUTATION_SEED)
+    perm = torch.randperm(2 ** MAIN_LOG2V, generator=perm_gen,
+                          device="cuda").int()
     for label, g in ((f"in-ELL 2^{PHASE3_LOG2V}", g3),
                      (f"in-ELL 2^{MAIN_LOG2V}", g4)):
         ell = in_ell(g)
         check_kernel(label, ell.nbr, ell.mask, ell.w, gen, True, checks)
-        del ell
+        if g is g4:
+            permuted = permuted_in_ell(ell.nbr, ell.mask, ell.w, perm)
+            del ell
+            check_kernel(f"{label} permuted ids", *permuted, gen, True,
+                         checks)
+            del permuted
+        else:
+            del ell
     torch.cuda.empty_cache()
     check_intersect_rows(checks)
     check_flash(checks)
@@ -1481,9 +1605,11 @@ def main() -> int:
     # and read just after it
     paths = {}
     reset_counts()
-    engine_rows = engine_phase(g3, g_small)
+    engine_rows, eng3 = engine_phase(g3, g_small)
     paths[f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}"] = \
         launch_counts()
+    breakdown = superstep_breakdown(eng3, engine_rows, checks)
+    del eng3
     reset_counts()
     plat, platform_rows = platform_phase(g4)
     paths[f"GraphPlatform.query V=2^{MAIN_LOG2V}"] = launch_counts()
@@ -1493,7 +1619,18 @@ def main() -> int:
 
     # kernel vs plain at the main-path shapes, on the platform's own
     # derived state (launches here are checks, not a path's)
-    check_intersect_main(plat.local.oriented, checks)
+    check_intersect_main(plat.local.oriented, checks,
+                         f"OrientedELL 2^{MAIN_LOG2V}")
+    from repro_torch.core import graph as G
+    src, dst = _host_edges(g4)
+    p = perm.cpu().numpy()
+    t0 = time.perf_counter()
+    o_perm = G.build_oriented_ell(p[src], p[dst], g4.n_vertices)
+    log(f"OrientedELL of the permuted ids: host build "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_intersect_main(o_perm, checks,
+                         f"OrientedELL 2^{MAIN_LOG2V} permuted ids")
+    del o_perm, src, dst, p, perm
     check_combine(f"capped ELL 2^{MAIN_LOG2V}", ell.nbr, ell.mask, ell.w, x,
                   True, checks, path_out=outs)
     del ell, outs, plat, g3, g4, g_small
@@ -1523,14 +1660,20 @@ def main() -> int:
     step = next(r for r in checks
                 if r["layout"] == f"in-ELL 2^{MAIN_LOG2V}"
                 and r.get("combo") == "cc")
+    step_perm = next(r for r in checks
+                     if r["layout"] == f"in-ELL 2^{MAIN_LOG2V} permuted ids"
+                     and r.get("combo") == "cc")
     inter = next(r for r in checks
                  if r["layout"] == f"OrientedELL 2^{MAIN_LOG2V}")
+    inter_perm = next(r for r in checks if r["layout"] ==
+                      f"OrientedELL 2^{MAIN_LOG2V} permuted ids")
     comb = next(r for r in checks
                 if r["layout"] == f"capped ELL 2^{MAIN_LOG2V}"
                 and r["op"] == "sum")
     attn = next(r for r in checks if r["layout"] == "gemma2-2b global")
     log(json.dumps({"summary": {
-        "engine": engine_rows, "platform": platform_rows,
+        "engine": engine_rows, "superstep_breakdown": breakdown,
+        "platform": platform_rows,
         "spmv": spmv_rows, "serve": serve_rows,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
@@ -1544,6 +1687,7 @@ def main() -> int:
          "launches_by_path": by_path("pregel_superstep"),
          "max_abs_err": errs("pregel_superstep"),
          **{k: step[k] for k in numbers},
+         "permuted_ids": {k: step_perm[k] for k in numbers},
          "shape": f"connected components (int32, msg_src, min) over the "
                   f"V=2^{MAIN_LOG2V} in-ELL, K={step['K']}"},
         {"name": "ell_intersect", "route": "cuda",
@@ -1556,6 +1700,7 @@ def main() -> int:
          **{k: inter[k] for k in numbers},
          "full_nbr_bound_ms": inter["full_nbr_bound_ms"],
          "gather_bound_ms": inter["gather_bound_ms"],
+         "permuted_ids": {k: inter_perm[k] for k in numbers + ("K",)},
          "library": inter["library"],
          "shape": f"per-edge counts over the V=2^{MAIN_LOG2V} OrientedELL, "
                   f"K={inter['K']}, {inter['padded_edges']} padded edges"},

@@ -21,9 +21,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_intersect.ref import (
     ell_intersect_counts_plain, ell_intersect_plain)
-# lanes per edge: the superstep's rule (the power of two at or above K/16,
-# between 2 and 32), so a lane walks at most 16 slots of the shorter row
-from repro_torch.kernels.pregel_superstep.ops import _lanes_log2
 
 #: Launches of the CUDA kernel, counted where the wrapper launches it
 #: (under a lock: the service's worker threads may launch concurrently).
@@ -32,7 +29,26 @@ _COUNT_LOCK = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
+#: the widest rows the staged path takes (``kStagedMaxK``)
+STAGED_MAX_K = 32
+
 _LIB = None
+
+
+def _lanes_log2(k: int) -> int:
+    """The kernel's path for rows of K slots, as log2 of the lanes an
+    edge: 0 for 1 <= K <= 32, a lane an edge merging the two rows staged
+    in shared memory (row u once per run of edges); otherwise the search
+    path, where the lanes an edge are the power of two at or above K/16
+    (between 2 and 32), each lane binary-searching at most 16 ids of the
+    shorter row in the longer one."""
+    if 1 <= k <= STAGED_MAX_K:
+        return 0
+    target = min(-(-max(k, 1) // 16), 32)
+    g = 1
+    while (1 << g) < target:
+        g += 1
+    return g
 
 
 def library():

@@ -88,17 +88,17 @@ def library():
     return _LIB
 
 
-def _lanes_log2(k: int) -> int:
-    """log2 of the lanes that share one row: the power of two at or above
-    K/16, between 2 and 32.  Each lane then owns up to 16 of the row's
-    slots, so it keeps several independent gathers in flight, and a warp
-    holds several rows; one warp per row (32 lanes) left the kernel
-    waiting on one dependent gather chain per row."""
-    target = min(-(-max(k, 1) // 16), 32)
-    g = 1
-    while (1 << g) < target:
-        g += 1
-    return g
+#: slots a block takes at once (``kPiece`` in the CUDA source)
+PIECE_SLOTS = 2048
+
+
+def _rows_per_tile(k: int) -> int:
+    """R, the rows a block owns: as many as fit one piece of 2048 slots,
+    a multiple of 4 from 4 up (so every tile starts on a 4-slot group);
+    a row longer than a piece is a tile of its own, walked piece by
+    piece."""
+    r = max(1, PIECE_SLOTS // max(k, 1))
+    return r - r % 4 if r >= 4 else r
 
 
 def kernel_out_dtype(x: torch.Tensor, message, message_dtype=None):
@@ -169,7 +169,7 @@ def fused_superstep(nbr, mask, w, x, *, message, op: str, identity,
             nbr.data_ptr(), mask.data_ptr(), w.data_ptr(), x.data_ptr(),
             out.data_ptr(), V, K, x.shape[0], _DTYPES[x.dtype],
             EDGE_PROGRAMS[message], _OPS[op], _DTYPES[out_dtype],
-            float(fill_value(op, identity)), _lanes_log2(K),
+            float(fill_value(op, identity)), _rows_per_tile(K),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pregel_superstep launch failed: CUDA error {rc}")

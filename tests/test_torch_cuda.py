@@ -95,6 +95,104 @@ def test_kernel_rejects_what_it_does_not_compile():
                             identity=INF)
 
 
+def _layout(v, k, seed, off=0):
+    """A layout that holds every case the kernel must get right: masks
+    with holes, rows whose live slots are not at the left, all-dead rows,
+    all-sentinel rows, ids past Vx (and negative) behind live and dead
+    slots, and the mask's rows ``off`` bytes from 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    vx = max(v - 3, 1)                      # ids at v and above: past Vx
+    nbr = rng.integers(-2, v + 3, (v, k)).astype(np.int32)
+    mask = rng.random((v, k)) < 0.5
+    mask[::7] = False                       # all-dead rows
+    nbr[3::7] = v                           # all-sentinel rows
+    mask[3::7] = False
+    if k > 1:
+        mask[1::7] = False                  # live slots at the right only
+        mask[1::7, k - k // 3 - 1:] = True
+        mask[2::7, 0] = False               # holes
+    w = rng.uniform(0.1, 2.0, (v, k)).astype(np.float32)
+    buf = torch.zeros(v * k + off, dtype=torch.bool, device="cuda")
+    m = buf[off:].view(v, k)
+    m.copy_(torch.from_numpy(mask))
+    return (torch.from_numpy(nbr).cuda(), m, torch.from_numpy(w).cuda(),
+            vx)
+
+
+def _state_x(kind, vx, seed):
+    rng = np.random.default_rng(seed + 1)
+    if kind == "ids":
+        x = rng.permutation(vx).astype(np.int32)
+    elif kind == "big":                     # int32 sums that wrap
+        x = rng.integers(2 ** 29, 2 ** 31 - 1, vx).astype(np.int32)
+    elif kind == "nan":                     # NaN, +inf, -inf for min/max
+        x = rng.integers(0, 40, vx).astype(np.float32)
+        x[rng.random(vx) < 0.05] = np.nan
+        x[rng.random(vx) < 0.1] = np.inf
+        x[rng.random(vx) < 0.05] = -np.inf
+    elif kind == "dist":
+        x = rng.integers(0, 40, vx).astype(np.float32)
+        x[rng.random(vx) < 0.3] = np.inf
+    else:
+        x = rng.random(vx).astype(np.float32)
+    return torch.from_numpy(x).cuda()
+
+
+# (edge program, state, monoid, channel dtype, identity): every channel
+# dtype, NaN and +-inf through min/max, int32 sums that wrap
+LAYOUT_COMBOS = [
+    (ops.msg_src, "ids", "min", None, IMAX),
+    (ops.msg_src, "ids", "max", None, -IMAX - 1),
+    (ops.msg_src, "big", "sum", None, 0),
+    (ops.msg_src, "ids", "min", "float32", INF),
+    (ops.msg_src_plus_one, "nan", "min", None, INF),
+    (ops.msg_src_plus_w, "nan", "max", None, -INF),
+    (ops.msg_src_times_w, "unit", "sum", None, 0.0),
+    (ops.msg_src, "nan", "min", "bfloat16", INF),
+    (ops.msg_src_plus_w, "dist", "max", "float16", -INF),
+]
+
+
+@pytest.mark.parametrize("k", [0, 1, 19, 20, 128, 3000])
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("msg,x_kind,op,md,ident", LAYOUT_COMBOS)
+def test_kernel_matches_plain_on_every_layout(k, off, msg, x_kind, op, md,
+                                              ident):
+    """Rows of 0 to 3000 slots (3000: one row a block, walked in chunks),
+    V not a multiple of the rows a block owns, and every case of
+    ``_layout``: min/max and int32 sums bit-equal to the plain version,
+    float sums within rtol 1e-5 (only the summation order differs)."""
+    v = 37 if k >= 1000 else 1001
+    nbr, mask, w, vx = _layout(v, k, seed=k * 13 + off, off=off)
+    rows = ops._rows_per_tile(k)
+    assert rows == 1 or v % rows != 0
+    assert k == 0 or mask.data_ptr() % 16 == off
+    x = _state_x(x_kind, vx, seed=k + off)
+    kw = dict(message=msg, op=op, identity=ident, message_dtype=md)
+    before = ops.KERNEL_LAUNCHES
+    got = ops.fused_superstep(nbr, mask, w, x, **kw)
+    torch.cuda.synchronize()
+    assert ops.KERNEL_LAUNCHES == before + 1
+    want = superstep_plain(nbr, mask, w, x, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if op == "sum" and got.dtype != torch.int32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    else:
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_kernel_float_sum_repeats_its_bytes():
+    """A float sum is reduced in a fixed order: two calls, same bytes."""
+    nbr, mask, w, vx = _layout(20000, 19, seed=3)
+    x = _state_x("unit", vx, seed=3) * 1e3
+    kw = dict(message=ops.msg_src_times_w, op="sum", identity=0.0)
+    a = ops.fused_superstep(nbr, mask, w, x, **kw)
+    b = ops.fused_superstep(nbr, mask, w, x, **kw)
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    torch.testing.assert_close(a, superstep_plain(nbr, mask, w, x, **kw),
+                               rtol=1e-5, atol=0.0)
+
+
 def _graph(device, weighted=True):
     sets = synthetic.identifier_edge_sets(3000, n_sets=4, mean_degree=1.5,
                                           seed=7)
@@ -235,6 +333,63 @@ def test_intersect_kernel_sentinel_and_identical_rows():
     row = torch.tensor([2, 3, 5, 7, 11, 100, 100, 100], dtype=torch.int32,
                        device="cuda").repeat(8, 1)
     assert (iops.ell_intersect(row, row.clone(), 100) == 5).all()
+
+
+def _runs_case(k, seed):
+    """An orientation-shaped input: V rows of at most k sorted, deduped
+    ids plus the all-sentinel row V; edges grouped by eu in runs of 1 to
+    300 (runs that cross warps and blocks of 256 edges), some rows
+    identical, some all sentinel, and padding edges eu = ev = V."""
+    rng = np.random.default_rng(seed)
+    V = 700
+    nbr = _sorted_rows(rng, V + 1, k, V, fill=1.0)
+    nbr[V] = V
+    nbr[1] = nbr[0]                          # identical rows
+    nbr[5:9] = V                             # all-sentinel rows
+    lengths = [1, 31, 32, 33, 255, 256, 257, 300, 2, 3, 64, 1, 7]
+    heads = np.sort(rng.choice(V, size=len(lengths), replace=False))
+    eu = np.repeat(heads, lengths)
+    ev = rng.integers(0, V, eu.size)
+    ev[:40] = eu[:40]                        # a row against itself
+    nbr[eu[:40], 0] = np.where(nbr[eu[:40], 0] == V, 0, nbr[eu[:40], 0])
+    ev[40:80] = np.repeat([0, 1, 5, 9], 10)
+    eu = np.concatenate([eu, np.full(100, V)])
+    ev = np.concatenate([ev, np.full(100, V)])
+    return [torch.from_numpy(a.astype(np.int32)).cuda()
+            for a in (nbr, eu, ev)] + [V]
+
+
+@pytest.mark.parametrize("k", [1, 9, 31, 32, 33, 3000])
+def test_intersect_kernel_runs_padding_and_both_paths(k):
+    """Both paths (K <= 32 staged in shared memory, wider rows searched)
+    on runs of one eu that cross warp and block boundaries, identical and
+    all-sentinel rows, and padding edges (count 0): exact counts."""
+    nbr, eu, ev, V = _runs_case(k, seed=k)
+    before = iops.KERNEL_LAUNCHES
+    got = iops._launch(nbr, eu, ev, V)
+    torch.cuda.synchronize()
+    assert iops.KERNEL_LAUNCHES == before + 1
+    want = ell_intersect_plain(nbr[eu.long()], nbr[ev.long()], V)
+    assert torch.equal(got, want)
+    assert int(want.sum()) > 0 and not bool(got[-100:].any())
+
+
+@pytest.mark.parametrize("k", [1, 9, 31, 32, 33, 3000])
+def test_intersect_two_matrix_form_every_path(k):
+    """The two-row-matrix form (eu = arange(E), ev = arange(E) + E: no
+    runs at all) with identical and all-sentinel rows, on both paths."""
+    rng = np.random.default_rng(k + 1)
+    e, vx = (40 if k >= 1000 else 600), 5000
+    a = _sorted_rows(rng, e, k, vx, fill=0.9)
+    b = _sorted_rows(rng, e, k, vx, fill=0.9)
+    b[::5] = a[::5]                          # identical rows
+    a[1::5] = vx                             # all-sentinel rows
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    got = iops.ell_intersect(ta, tb, vx)
+    want = ell_intersect_plain(ta, tb, vx)
+    assert torch.equal(got, want)
+    assert torch.equal(got[::5], (ta[::5] < vx).sum(1, dtype=torch.int32))
+    assert not bool(got[1::5].any())
 
 
 def test_intersect_counts_on_an_orientation_match_plain():

@@ -179,3 +179,16 @@ def test_padding_edges_count_zero():
     assert (counts[to.n_edges:] == 0).all()
     assert torch.equal(counts[: to.n_edges],
                        ell_intersect_counts_plain(to))
+
+
+def test_kernel_path_follows_k_alone():
+    """The kernel's path is intersect's own rule (no launch shape borrowed
+    from the superstep): rows of 1 to 32 slots staged in shared memory, a
+    lane an edge; wider (and empty) rows on the search path, with lanes
+    an edge growing with K; the wrapper and the CUDA source agree on the
+    limit."""
+    assert [ops._lanes_log2(k) for k in (0, 1, 9, 31, 32, 33, 200, 500,
+                                         3000)] == [1, 0, 0, 0, 0, 2, 4, 5, 5]
+    assert f"kStagedMaxK = {ops.STAGED_MAX_K};" in \
+        (ops.CSRC / "intersect.cu").read_text()
+    assert "pregel_superstep" not in open(ops.__file__).read()

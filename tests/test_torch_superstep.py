@@ -207,8 +207,15 @@ def test_compiled_programs_and_lane_groups():
     assert all(ops.compiled(f) for f in ops.EDGE_PROGRAMS)
     assert not ops.compiled(lambda s, w: s)
     assert sorted(ops.EDGE_PROGRAMS.values()) == [0, 1, 2, 3]
-    assert [ops._lanes_log2(k) for k in (0, 1, 18, 32, 33, 200, 500,
-                                         5000)] == [1, 1, 1, 1, 2, 4, 5, 5]
+    # rows a block owns: one piece of 2048 slots, a multiple of 4 from 4
+    # up, at least one
+    assert [ops._rows_per_tile(k) for k in (0, 1, 16, 19, 128, 600, 1024,
+                                            2049, 100000)] == \
+        [2048, 2048, 128, 104, 16, 3, 2, 1, 1]
+    assert all(ops._rows_per_tile(k) * k <= ops.PIECE_SLOTS
+               and (ops._rows_per_tile(k) < 4
+                    or ops._rows_per_tile(k) % 4 == 0)
+               for k in range(1, 2049))
     x = torch.zeros(3, dtype=torch.int32)
     assert ops.kernel_out_dtype(x, ops.msg_src) == torch.int32
     assert ops.kernel_out_dtype(x, ops.msg_src_plus_one) == torch.float32
