@@ -7,11 +7,13 @@ Run from the root of a checkout, on a host with one CUDA card::
 
 It builds the port's CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card, drives the port's paths
-(graph queries through ``LocalEngine.run`` and ``GraphPlatform.query``,
-``LocalEngine._spmv``, and Gemma-2 2B serving through ``greedy_generate``)
-and checks the answers against host oracles (scipy, numpy) and the plain
-versions on the card.  Phases, in order; any failure exits non-zero and
-prints no result line:
+(graph queries through ``LocalEngine.run``, ``LocalEngine.run_batch`` and
+``GraphPlatform.query``, the service's fused batches, ``LocalEngine._spmv``,
+two-hop, label propagation, HITS, the ETL pipeline, the graph CLI, and
+Gemma-2 2B serving through ``greedy_generate``) and checks the answers
+against host oracles (scipy, numpy) and the plain versions on the card.
+Phases, in the order they run (7 runs between 5 and 6); any failure exits
+non-zero and prints no result line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -42,7 +44,11 @@ prints no result line:
               RMS: 1e-2 bf16, 1e-4 float32) and, on unit-normal inputs,
               within 2e-2 (bf16) and 1e-4 (float32) absolute; planted
               faults (softcap dropped, window a tile short, first kv tile
-              dropped) must fail that check; timed with CUDA events
+              dropped) must fail that check; pregel_superstep's batched
+              entry (state [Vx, B], B = 1, 3, 16, 33; min/max/sum,
+              int32/float32) on the ragged and holey layouts, and at the
+              fused batches' shapes (B = 16 on the 2^20 in-ELL, B = 8 on
+              the 2^24 one); timed with CUDA events
               (median of 10 samples of 10 back-to-back calls; the plain
               versions at the main-path shapes 3 samples of 1) beside
               the bound and, where one PyTorch call computes the same
@@ -62,7 +68,12 @@ prints no result line:
               around every pregel_superstep launch call (launch latency
               included: an upper bound of the kernel's share) beside the
               wall time per superstep, and the share of the kernel's
-              back-to-back time from phase 2
+              back-to-back time from phase 2.  Then 16 BFS source sets
+              and 16 SSSP sources (64 supersteps), each alone, as one
+              ``LocalEngine.run_batch`` (the engine's own variant) and as
+              one ``run_superstep(batched_spec(...), variant="fused")``:
+              every column byte-equal to its query alone, the batched
+              kernel launched once a superstep
   4. platform ``GraphPlatform`` on the V = 2^24 identifier graph (~130 M
               directed edges, the paper's "combined connected users"):
               CC, CC count, BFS and weighted SSSP (64-superstep bound), a
@@ -74,6 +85,19 @@ prints no result line:
               intersect version on the card
   5. spmv     ``LocalEngine._spmv`` (ell_spmv) sum/min/max over the
               platform's degree-capped ELL (K = 128)
+  7. slice    on the phase-4 platform, 8 batch-tier BFS tickets (64
+              supersteps) and 8 Jaccard tickets of 4096 pairs, each kind
+              fused into one execution by the service, byte-equal to the
+              queries alone and (Jaccard) to a numpy set oracle; two-hop
+              on the safety graph (2^20 users, 2^18 identifiers, cap 48)
+              against a numpy expansion of the same rows, and its count
+              fast path; label propagation at 2^22 (deterministic,
+              communities inside scipy's components, card == CPU at
+              2^20); HITS on the 2^22 user-follow graph against the
+              float64 oracle; a SnapshotStore under ``build/`` through
+              ``GraphETL``, a CC query and ``ResultSink`` (store deleted
+              after); ``python -m repro_torch.launch.run_graph --job
+              two-hop`` as a subprocess on the card
   6. serve    Gemma-2 2B at full width (26 layers, bf16 activations over
               float32 master weights drawn from seed 0, flash attention):
               two batches of requests through ``greedy_generate`` (the
@@ -132,6 +156,19 @@ BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 PERMUTATION_SEED = 16      # the permuted-id copies of the 2^24 graph
 PAGERANK_HALT_L1 = 1e-5    # PageRank halts when an iteration moves < this
 PAGERANK_L1_TOL = 1e-4
+BATCH_WIDTH = 16           # phase-3 batches: BFS source sets, SSSP sources
+RUN_BATCH_PATH = f"LocalEngine.run_batch V=2^{PHASE3_LOG2V}"
+FORCED_BATCH_PATH = (f"LocalEngine.run_superstep(batched_spec, 'fused') "
+                     f"V=2^{PHASE3_LOG2V}")
+SERVICE_TICKETS = 8        # phase-7 service fusion: tickets of each kind
+JACCARD_PAIRS = 4096       # pairs in one Jaccard ticket
+TWO_HOP_USERS_LOG2 = 20    # the safety graph: 2^20 users,
+TWO_HOP_IDS_LOG2 = 18      # 2^18 identifiers,
+TWO_HOP_CAP = 48           # hubs of 48 users, MaxAdjacentNodes 48
+SLICE_LOG2V = 22           # label propagation and HITS graphs
+LPA_CPU_ITERS = 5          # supersteps of the card-vs-CPU LPA check
+HITS_ATOL = 1e-4           # tests/test_hits.py's tolerance
+HITS_REL_L2 = 1e-2         # relative L2 distance to the float64 oracle
 TIMING_REPS = 10
 CALLS_PER_SAMPLE = 10
 
@@ -277,17 +314,19 @@ def _ragged(v, k, gen):
     return nbr, mask, w
 
 
-def _bound(mask, vx, prog_reads_w, x, out, program_adds):
+def _bound(mask, prog_reads_w, x, out, program_adds):
     """Least time for the call on the card: bytes over memory rate vs
     operations over the float32 rate; the larger bounds it.  What this
     data needs: the mask in full (it decides which slots are live), nbr
     and, for the programs that read it, w at the live slots only, x and
-    the output once; one operation per live slot (two with an add)."""
+    the output once; one operation per live slot and column (two with an
+    add).  State [Vx, B] and output [V, B] count B columns."""
     v, k = mask.shape
     live = int(mask.sum())
+    cols = out.numel() // max(v, 1)
     nbytes = v * k + live * (4 + (4 if prog_reads_w else 0)) \
-        + x.element_size() * vx + out.element_size() * v
-    ops = live * (2 if program_adds else 1)
+        + x.element_size() * x.numel() + out.element_size() * out.numel()
+    ops = live * cols * (2 if program_adds else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -315,7 +354,7 @@ def check_kernel(label, nbr, mask, w, gen, timed, results):
                "ok": bool(ok), "max_abs_err": err}
         if timed:
             reads_w = msg in (ops.msg_src_plus_w, ops.msg_src_times_w)
-            bound, by = _bound(mask, V, reads_w, x, got,
+            bound, by = _bound(mask, reads_w, x, got,
                                msg is not ops.msg_src)
             row.update(
                 ms=cuda_ms(lambda: ops.fused_superstep(nbr, mask, w, x,
@@ -329,6 +368,71 @@ def check_kernel(label, nbr, mask, w, gen, timed, results):
         log("kernel " + json.dumps(row))
         if not ok:
             fail(f"kernel disagrees with its plain version: {row}")
+
+
+def _batched_combos():
+    """The 1-D combos and, for the batched entry, max over int32 ids and
+    over float32 distances."""
+    import numpy as np
+    from repro_torch.kernels.pregel_superstep import ops
+    imax = int(np.iinfo(np.int32).max)
+    return _combos() + [
+        ("cc_max", "int32", ops.msg_src, "max", None, -imax - 1),
+        ("sssp_max", "float32", ops.msg_src_plus_w, "max", None,
+         -float("inf")),
+    ]
+
+
+def check_batched(label, nbr, mask, w, gen, widths, timed, results,
+                  names=None):
+    """pregel_superstep's [Vx, B] entry (``pregel_superstep_batched``, the
+    fused batch of B queries) vs the plain version on one layout, for
+    each width B: min/max bit-identical, float sums within rtol 1e-5."""
+    import torch
+    from repro_torch.core.pregel import Lifted
+    from repro_torch.kernels.pregel_superstep import ops
+    from repro_torch.kernels.pregel_superstep.ref import superstep_plain
+    V, K = nbr.shape
+    for b in widths:
+        for name, _, msg, op, md, ident in _batched_combos():
+            if names is not None and name not in names:
+                continue
+            kind = {"cc_max": "cc", "sssp_max": "sssp"}.get(name, name)
+            x = torch.stack([_state(kind, V, gen) for _ in range(b)],
+                            dim=1).contiguous()
+            kw = dict(message=Lifted(msg, (-1, None)), op=op,
+                      identity=ident, message_dtype=md)
+            got = ops.fused_superstep(nbr, mask, w, x, **kw)
+            torch.cuda.synchronize()
+            want = _plain_by_rows(superstep_plain, nbr, mask, w, x, **kw)
+            if op == "sum":
+                ok = got.dtype == want.dtype and torch.allclose(
+                    got, want, rtol=1e-5, atol=0.0)
+            else:
+                ok = bits_equal(got, want)
+            row = {"kernel": "pregel_superstep_batched", "layout": label,
+                   "combo": name, "V": V, "K": K, "B": b, "ok": bool(ok),
+                   "max_abs_err": max_abs_err(got, want)}
+            if timed:
+                reads_w = msg in (ops.msg_src_plus_w, ops.msg_src_times_w)
+                bound, by = _bound(mask, reads_w, x, got,
+                                   msg is not ops.msg_src)
+                row.update(
+                    ms=cuda_ms(lambda: ops.fused_superstep(nbr, mask, w, x,
+                                                           **kw)),
+                    plain_ms=cuda_ms(lambda: _plain_by_rows(
+                        superstep_plain, nbr, mask, w, x, **kw),
+                                     reps=3, calls=1, warmup=1),
+                    bound_ms=bound, bound_by=by, library_ms=None,
+                    library="n/a: no single PyTorch call gathers x[nbr] "
+                            "rows, applies the edge program and reduces "
+                            "each masked ELL row per column")
+            results.append(row)
+            log("kernel " + json.dumps(row))
+            if not ok:
+                fail(f"the batched kernel disagrees with its plain version: "
+                     f"{row}")
+            del x, got, want
 
 
 def permuted_in_ell(nbr, mask, w, perm):
@@ -454,12 +558,13 @@ def check_intersect_rows(results):
             fail(f"ell_intersect disagrees with its plain version: {row}")
 
 
-def _plain_by_rows(fn, nbr, mask, w, x, op, rows=1 << 21):
+def _plain_by_rows(fn, nbr, mask, w, x, rows=1 << 21, **kw):
     """The plain version over row blocks (rows are independent), so its
-    [V, K] temporaries stay a few GB at the main-path shape."""
+    [V, K] (or [V, K, B]) temporaries stay a few GB at the main-path
+    shapes."""
     import torch
     return torch.cat([fn(nbr[i:i + rows], mask[i:i + rows], w[i:i + rows],
-                         x, op=op) for i in range(0, nbr.shape[0], rows)])
+                         x, **kw) for i in range(0, nbr.shape[0], rows)])
 
 
 def _holey(v, k, off, gen):
@@ -501,7 +606,7 @@ def check_combine(label, nbr, mask, w, x, timed, results, path_out=None):
     for op in ("sum", "min", "max"):
         got = cops.ell_spmv(nbr, mask, w, x, op=op)
         torch.cuda.synchronize()
-        want = _plain_by_rows(ell_combine_plain, nbr, mask, w, x, op)
+        want = _plain_by_rows(ell_combine_plain, nbr, mask, w, x, op=op)
         if op == "sum":
             ok = torch.allclose(got, want, rtol=1e-5, atol=0.0)
         else:
@@ -511,11 +616,11 @@ def check_combine(label, nbr, mask, w, x, timed, results, path_out=None):
         row = {"kernel": "ell_combine", "layout": label, "op": op, "V": V,
                "K": K, "ok": bool(ok), "max_abs_err": max_abs_err(got, want)}
         if timed:
-            bound, by = _bound(mask, V, op == "sum", x, got, op == "sum")
+            bound, by = _bound(mask, op == "sum", x, got, op == "sum")
             row.update(
                 ms=cuda_ms(lambda: cops.ell_spmv(nbr, mask, w, x, op=op)),
                 plain_ms=cuda_ms(lambda: _plain_by_rows(
-                    ell_combine_plain, nbr, mask, w, x, op), reps=3,
+                    ell_combine_plain, nbr, mask, w, x, op=op), reps=3,
                     calls=1, warmup=1),
                 bound_ms=bound, bound_by=by, library_ms=None)
             if op == "sum":
@@ -739,12 +844,19 @@ def _ops_modules() -> dict:
 
 
 def launch_counts() -> dict:
-    return {n: m.KERNEL_LAUNCHES for n, m in _ops_modules().items()}
+    """Launches per kernel; ``pregel_superstep`` counts both of its
+    entries, ``pregel_superstep_batched`` the [Vx, B] entry alone."""
+    mods = _ops_modules()
+    counts = {n: m.KERNEL_LAUNCHES for n, m in mods.items()}
+    counts["pregel_superstep_batched"] = \
+        mods["pregel_superstep"].BATCHED_LAUNCHES
+    return counts
 
 
 def reset_counts() -> None:
     for m in _ops_modules().values():
         m.KERNEL_LAUNCHES = 0
+    _ops_modules()["pregel_superstep"].BATCHED_LAUNCHES = 0
 
 
 def launched_since(before: dict) -> dict:
@@ -880,6 +992,82 @@ def superstep_breakdown(eng, engine_rows, checks):
                "kernel_share_back_to_back": back_to_back / untimed}
         rows.append(row)
         log("superstep breakdown " + json.dumps(row))
+    return rows
+
+
+def batch_phase(eng, paths):
+    """Fused batches at 2^20 through ``LocalEngine``: BATCH_WIDTH BFS
+    source sets and BATCH_WIDTH SSSP sources (BFS_HOPS supersteps), each
+    first alone (``run``), then as one ``run_batch`` under the engine's
+    own choice of variant (frontier at this size: it launches no
+    kernel), then as one ``run_superstep(batched_spec(...),
+    variant="fused")``, which launches the batched kernel once a
+    superstep.  Every column byte-equal to its query alone.  The launches
+    of the two batched runs go into ``paths`` under RUN_BATCH_PATH and
+    FORCED_BATCH_PATH, the counts set to 0 just before each run."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from repro_torch.core.pregel import batched_spec
+    TR = importlib.import_module("repro_torch.core.algorithms.traversal")
+    V = eng.coo.n_vertices
+    rng = np.random.default_rng(17)
+    bfs = [{"sources": tuple(int(s) for s in
+                             rng.choice(V, 1 + i % 3, replace=False)),
+            "max_iters": BFS_HOPS} for i in range(BATCH_WIDTH)]
+    sssp = [{"source": int(s), "max_iters": BFS_HOPS}
+            for s in rng.choice(V, BATCH_WIDTH, replace=False)]
+    rows = []
+    for algo, ps, spec in (("bfs", bfs, TR._BFS_SPEC),
+                           ("sssp", sssp, TR._SSSP_SPEC)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = [eng.run(algo, p) for p in ps]
+        torch.cuda.synchronize()
+        solo_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts()
+        t0 = time.perf_counter()
+        fused = eng.run_batch(algo, ps)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        auto = launch_counts()
+        for i, (a, b) in enumerate(zip(solo, fused)):
+            if not bits_equal(a.value, b.value):
+                fail(f"{algo} run_batch column {i} differs from its query "
+                     "alone")
+        init = torch.full((V, len(ps)), float("inf"), device=eng.device)
+        for b, p in enumerate(ps):
+            init[list(p.get("sources", (p.get("source"),))), b] = 0.0
+        reset_counts()
+        t0 = time.perf_counter()
+        dist, iters = eng.run_superstep(batched_spec(spec), init, BFS_HOPS,
+                                        variant="fused")
+        torch.cuda.synchronize()
+        forced_ms = (time.perf_counter() - t0) * 1e3
+        forced = launch_counts()
+        for path, got in ((RUN_BATCH_PATH, auto), (FORCED_BATCH_PATH, forced)):
+            total = paths.setdefault(path, dict.fromkeys(got, 0))
+            for name, n in got.items():
+                total[name] += n
+        if forced["pregel_superstep_batched"] != iters or \
+                forced["pregel_superstep"] != iters:
+            fail(f"{algo}: the forced fused batch launched {forced} in "
+                 f"{iters} supersteps")
+        for i, a in enumerate(solo):
+            if not bits_equal(a.value, dist[:, i].contiguous()):
+                fail(f"{algo}: fused-kernel column {i} differs from its "
+                     "query alone")
+        row = {"algo": algo, "batch": len(ps), "max_iters": BFS_HOPS,
+               "solo_variant": solo[0].meta.get("realized_variant"),
+               "solo_ms_total": solo_ms,
+               "run_batch_variant": fused[0].meta.get("realized_variant"),
+               "run_batch_ms": batch_ms, "run_batch_launches": auto,
+               "fused_supersteps": int(iters), "fused_ms": forced_ms,
+               "fused_ms_per_superstep": forced_ms / max(int(iters), 1),
+               "fused_launches": forced}
+        rows.append(row)
+        log("batch " + json.dumps(row))
     return rows
 
 
@@ -1439,6 +1627,374 @@ def _param_tree(params):
             else v.detach() for k, v in params.items()}
 
 
+# --------------------------------------------------------------- phase 7
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def service_fusion(plat, coo):
+    """Batch-tier tickets on the platform's service at 2^24: SERVICE_TICKETS
+    BFS queries (BFS_HOPS supersteps) and SERVICE_TICKETS Jaccard queries
+    of JACCARD_PAIRS pairs each, each group coalesced into one fused
+    execution.  The tier threshold is set to 0 for the submissions (a
+    calibration profile, as production would), so every ticket is batch
+    work.  Each result byte-equal to its query alone (result cache
+    emptied first); Jaccard also equal to a numpy set oracle over the
+    capped ELL rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import planner as P
+    from repro_torch.core.query import GraphQuery
+    V = coo.n_vertices
+    svc = plat.service
+    rng = np.random.default_rng(23)
+    bfs = [GraphQuery.bfs(tuple(int(s) for s in rng.choice(V, 2)),
+                          max_iters=BFS_HOPS)
+           for _ in range(SERVICE_TICKETS)]
+    # pairs a few ids apart: the identifier graph links nearby ids, so
+    # their neighbourhoods overlap (random pairs would score 0)
+    jac = []
+    for _ in range(SERVICE_TICKETS):
+        u = rng.integers(0, V, JACCARD_PAIRS)
+        jac.append(GraphQuery.of("jaccard", u=u,
+                                 v=(u + rng.integers(0, 8, u.size)) % V))
+    prev = P.active_calibration()
+    P.set_calibration(dataclasses.replace(prev, interactive_threshold_s=0.0))
+    results, drain_ms = [], {}
+    try:
+        before_batches = svc.stats["fused_batches"]
+        for kind, qs in (("bfs", bfs), ("jaccard", jac)):
+            tickets = [svc.submit(plat.GRAPH, q) for q in qs]
+            if any(t.tier != "batch" for t in tickets):
+                fail("service tickets did not land in the batch tier")
+            _, drain_ms[kind] = _timed(svc.drain)
+            results += [svc.result(t) for t in tickets]
+    finally:
+        P.set_calibration(prev)
+    fused_batches = svc.stats["fused_batches"] - before_batches
+    if fused_batches != 2:
+        fail(f"{fused_batches} fused executions for BFS and Jaccard tickets")
+    for r in results:
+        if r.meta.get("fused", {}).get("batch_size") != SERVICE_TICKETS:
+            fail(f"a ticket was not part of a fused batch of "
+                 f"{SERVICE_TICKETS}: {r.meta.get('fused')}")
+    plat._result_cache.clear()
+    solo, solo_ms = [], {"bfs": 0.0, "jaccard": 0.0}
+    for kind, q in [("bfs", q) for q in bfs] + [("jaccard", q) for q in jac]:
+        r, ms = _timed(lambda: plat.query(q))
+        if r.meta.get("cache") == "hit":
+            fail("a solo query was served from the result cache")
+        solo.append(r)
+        solo_ms[kind] += ms
+    for i, (a, b) in enumerate(zip(results, solo)):
+        if not bits_equal(a.value, b.value):
+            fail(f"fused ticket {i} differs from its query alone")
+    ell = plat.local.ell
+    n_checked = 0
+    for q, r in zip(jac, results[SERVICE_TICKETS:]):
+        u = torch.as_tensor(np.asarray(q.params["u"]), device=ell.nbr.device)
+        v = torch.as_tensor(np.asarray(q.params["v"]), device=ell.nbr.device)
+        nu, mu = ell.nbr[u].cpu().numpy(), ell.mask[u].cpu().numpy()
+        nv, mv = ell.nbr[v].cpu().numpy(), ell.mask[v].cpu().numpy()
+        want = np.zeros(u.shape[0], dtype=np.float32)
+        for k in range(u.shape[0]):
+            a, b = set(nu[k][mu[k]].tolist()), set(nv[k][mv[k]].tolist())
+            inter, union = len(a & b), len(a | b)
+            if union:
+                want[k] = np.float32(inter) / np.float32(union)
+        if r.value.cpu().numpy().tobytes() != want.tobytes():
+            fail("fused Jaccard differs from the numpy set oracle")
+        n_checked += int((want > 0).sum())
+    if n_checked < SERVICE_TICKETS * JACCARD_PAIRS // 4:
+        fail(f"the Jaccard check holds only {n_checked} non-zero scores")
+    row = {"path": "service fusion", "graph": f"2^{MAIN_LOG2V}",
+           "tickets": len(results), "fused_batches": fused_batches,
+           "bfs_variant": results[0].meta.get("realized_variant"),
+           "fused_drain_ms": drain_ms, "solo_ms_total": solo_ms,
+           "fused_over_solo": {k: drain_ms[k] / solo_ms[k] for k in solo_ms},
+           "jaccard_nonzero": n_checked}
+    log("slice " + json.dumps(row))
+    return row
+
+
+def two_hop_phase():
+    """The multi-account two-hop motif through ``GraphPlatform`` on the
+    safety graph (2^20 users, 2^18 identifiers, hubs of 48, cap 48):
+    distinct pairs against a numpy expansion of the same capped rows, the
+    count fast path against sum d(d-1)/2 over exact identifier degrees;
+    peak device memory of the expansion and its sort."""
+    import numpy as np
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.core.query import GraphPlatform, GraphQuery
+    from repro_torch.data import synthetic
+    n_users, n_ids = 2 ** TWO_HOP_USERS_LOG2, 2 ** TWO_HOP_IDS_LOG2
+    t0 = time.perf_counter()
+    u, i = synthetic.safety_bipartite_graph(n_users, n_ids,
+                                            hub_degree=TWO_HOP_CAP, seed=2)
+    V = int(max(u.max(), i.max())) + 1
+    coo = G.build_coo(u, i, V)
+    build_s = time.perf_counter() - t0
+    plat = GraphPlatform(coo, local_max_degree=TWO_HOP_CAP)
+    q = GraphQuery.two_hop(n_users=n_users)
+    plan = plat.plan(q)
+    if plan.engine != "local":
+        fail(f"two-hop planned on {plan.engine}: the oracle reads the local "
+             "engine's capped rows")
+    ell = plat.local.ell
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    r, ms = _timed(lambda: plat.query(q))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pairs, valid, count = r.value
+    got = pairs[valid].cpu().numpy().astype(np.int64)
+    slots = int(pairs.shape[0])
+    del pairs, valid, r
+    plat._result_cache.clear()
+    torch.cuda.empty_cache()
+    got_keys = (got[:, 0] << 32) | got[:, 1]
+    nbr, mask = ell.nbr.cpu().numpy(), ell.mask.cpu().numpy()
+    deg = mask.sum(axis=1)
+    K = nbr.shape[1]
+    if not (mask == (np.arange(K)[None, :] < deg[:, None])).all():
+        fail("the capped ELL rows are not packed left")
+    t0 = time.perf_counter()
+    keys = []
+    for d in range(2, K + 1):
+        rows = np.flatnonzero(deg == d)
+        if rows.size == 0:
+            continue
+        R = nbr[rows, :d].astype(np.int64)
+        a, b = np.triu_indices(d, k=1)
+        lo, hi = np.minimum(R[:, a], R[:, b]), np.maximum(R[:, a], R[:, b])
+        keep = lo != hi
+        keys.append((lo[keep] << 32) | hi[keep])
+    want = np.unique(np.concatenate(keys))
+    oracle_s = time.perf_counter() - t0
+    if count != want.size or not np.array_equal(got_keys, want):
+        fail(f"two-hop pairs: {count} on the card, {want.size} in numpy's "
+             "expansion of the same rows")
+    rc, count_ms = _timed(lambda: plat.query(
+        GraphQuery.two_hop(n_users=n_users, count_only=True)))
+    d = np.bincount(i, minlength=V).astype(np.int64)
+    want_count = int((d * (d - 1) // 2).sum())
+    if rc.value != want_count:
+        fail(f"two-hop count {rc.value} != sum d(d-1)/2 = {want_count}")
+    row = {"path": "two-hop", "users": n_users, "identifiers": n_ids,
+           "edges": coo.n_edges, "cap": TWO_HOP_CAP, "rows": V,
+           "pair_slots": slots, "engine": plan.engine, "pairs": int(count),
+           "ms": ms, "max_memory_allocated_gb": peak_gb,
+           "memory_before_gb": base_gb, "count_only": want_count,
+           "count_ms": count_ms, "max_identifier_degree": int(d.max()),
+           "host_build_s": build_s, "oracle_s": oracle_s}
+    log("slice " + json.dumps(row))
+    return row
+
+
+def _scipy_components(coo):
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    src, dst = _host_edges(coo)
+    V = coo.n_vertices
+    _, lab = connected_components(
+        csr_matrix((np.ones(src.size), (src, dst)), shape=(V, V)),
+        directed=False)
+    return lab
+
+
+def lpa_phase(g20):
+    """Label propagation through ``GraphPlatform`` on the symmetrized
+    identifier graph at 2^SLICE_LOG2V: two runs give the same bytes, every
+    community lies inside one of scipy's components, and the count query
+    equals the number of labels; on the 2^20 graph (LPA_CPU_ITERS
+    supersteps) the card's labels equal the port's own run on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.core.query import GraphPlatform, GraphQuery
+    coo = identifier_graph(SLICE_LOG2V, seed=4)
+    plat = GraphPlatform(coo)
+    q = GraphQuery.label_propagation()
+    torch.cuda.reset_peak_memory_stats()
+    r1, ms1 = _timed(lambda: plat.query(q))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plat._result_cache.clear()
+    r2, ms2 = _timed(lambda: plat.query(q))
+    if not bits_equal(r1.value, r2.value) or r1.iterations != r2.iterations:
+        fail("label propagation is not deterministic on the card")
+    labels = r1.value.cpu().numpy()
+    comp = _scipy_components(coo)
+    if not (comp[labels] == comp).all():
+        fail("a community crosses a connected component")
+    n_comm = int(np.unique(labels).size)
+    rc = plat.query(GraphQuery.label_propagation(count_only=True))
+    if rc.value != n_comm:
+        fail(f"num_communities {rc.value} != {n_comm} labels")
+    gpu, cpu = LocalEngine(g20), LocalEngine(g20.to("cpu"), device="cpu")
+    params = {"max_iters": LPA_CPU_ITERS}
+    a, ms_small = _timed(lambda: gpu.run("label_propagation", params))
+    t0 = time.perf_counter()
+    b = cpu.run("label_propagation", params)
+    cpu_s = time.perf_counter() - t0
+    if not bits_equal(a.value.cpu(), b.value) or a.iterations != b.iterations:
+        fail("label propagation on the card differs from the CPU at 2^20")
+    row = {"path": "label propagation", "graph": f"2^{SLICE_LOG2V}",
+           "edges": coo.n_edges, "engine": r1.engine,
+           "iterations": r1.iterations, "ms": ms1, "ms_repeat": ms2,
+           "ms_per_superstep": ms1 / max(r1.iterations, 1),
+           "max_memory_allocated_gb": peak_gb, "communities": n_comm,
+           "components": int(np.unique(comp).size),
+           "cpu_check": {"graph": f"2^{PHASE3_LOG2V}",
+                         "iterations": a.iterations, "card_ms": ms_small,
+                         "cpu_s": cpu_s}}
+    log("slice " + json.dumps(row))
+    return row
+
+
+def hits_phase():
+    """HITS through ``GraphPlatform`` on the user-follow graph at
+    2^SLICE_LOG2V (mean degree 8) against ``hits_reference`` (float64,
+    numpy) within HITS_ATOL, as ``tests/test_hits.py`` holds it, and the
+    relative L2 distance of each score vector within HITS_REL_L2."""
+    import importlib
+
+    import numpy as np
+    from repro_torch.core import graph as G
+    from repro_torch.core.query import GraphPlatform, GraphQuery
+    from repro_torch.data import synthetic
+    H = importlib.import_module("repro_torch.core.algorithms.hits")
+    V = 2 ** SLICE_LOG2V
+    t0 = time.perf_counter()
+    src, dst = synthetic.user_follow_graph(V, 8.0, seed=5)
+    coo = G.build_coo(src, dst, V)
+    build_s = time.perf_counter() - t0
+    plat = GraphPlatform(coo)
+    r, ms = _timed(lambda: plat.query(GraphQuery.of("hits")))
+    t0 = time.perf_counter()
+    want, want_iters = H.hits_reference(src, dst, V)
+    oracle_s = time.perf_counter() - t0
+    errs = {}
+    for k in ("hubs", "authorities"):
+        got = r.value[k].cpu().numpy().astype(np.float64)
+        ref = want[k].astype(np.float64)
+        errs[k] = {"max_abs_err": float(np.abs(got - ref).max()),
+                   "rel_l2": float(np.linalg.norm(got - ref)
+                                   / max(np.linalg.norm(ref), 1e-30)),
+                   "max_score": float(ref.max())}
+        if not (errs[k]["max_abs_err"] <= HITS_ATOL
+                and errs[k]["rel_l2"] <= HITS_REL_L2):
+            fail(f"HITS {k} differs from the float64 oracle: {errs[k]}")
+    row = {"path": "hits", "graph": f"user-follow 2^{SLICE_LOG2V}",
+           "edges": coo.n_edges, "engine": r.engine,
+           "iterations": r.iterations, "oracle_iterations": want_iters,
+           "ms": ms, "ms_per_superstep": ms / max(r.iterations, 1),
+           "errors": errs, "host_build_s": build_s, "oracle_s": oracle_s}
+    log("slice " + json.dumps(row))
+    return row
+
+
+def etl_phase():
+    """The ETL pipeline on the card: two daily snapshots and a delta
+    partition in a ``SnapshotStore`` under ``build/``, resolved and built
+    by ``GraphETL`` (symmetrized, capped at 100) into a COO on the card,
+    a CC query through ``GraphPlatform`` against scipy, and the labels
+    through ``ResultSink`` and back.  The store is deleted after."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.query import GraphPlatform, GraphQuery
+    from repro_torch.data import synthetic
+    from repro_torch.data.etl import (GraphETL, ResultSink, Snapshot,
+                                      SnapshotDelta, SnapshotStore)
+    root = ROOT / "build" / "chip_smoke_etl"
+    shutil.rmtree(root, ignore_errors=True)
+    V = 2 ** PHASE3_LOG2V
+    try:
+        store = SnapshotStore(str(root / "snapshots"))
+        sets = synthetic.identifier_edge_sets(V, n_sets=2, mean_degree=1.5,
+                                              seed=6)
+        for day, (s, d) in enumerate(sets):
+            store.write(Snapshot(f"d{day}", s, d))
+        rng = np.random.default_rng(6)
+        store.write_delta(SnapshotDelta(
+            "d2", "d1", rng.integers(0, V, 5000), rng.integers(0, V, 5000),
+            sets[1][0][:5000], sets[1][1][:5000]))
+        snaps = [store.resolve("d0"), store.resolve("d2")]
+        (coo, ell, report), build_ms = _timed(lambda: GraphETL(
+            max_adjacent_nodes=100, symmetrize=True).build(snaps,
+                                                           n_vertices=V))
+        if coo.device.type != "cuda":
+            fail(f"GraphETL built its graph on {coo.device}")
+        r, ms = _timed(lambda: GraphPlatform(coo).query(
+            GraphQuery.connected_components()))
+        lab = _scipy_components(coo)
+        first = np.full(lab.max() + 1, V, dtype=np.int64)
+        np.minimum.at(first, lab, np.arange(V))
+        if not np.array_equal(r.value.cpu().numpy(),
+                              first[lab].astype(np.int32)):
+            fail("CC of the ETL graph differs from scipy's components")
+        sink = ResultSink(str(root / "results"))
+        sink.write("cc_labels", {"labels": r.value},
+                   {"snapshots": "d0+d2", "hash": report.content_hash})
+        arrays, manifest = sink.read("cc_labels")
+        if arrays["labels"].tobytes() != r.value.cpu().numpy().tobytes() \
+                or manifest["arrays"]["labels"] != [V]:
+            fail("ResultSink did not return the labels it was given")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"path": "etl", "snapshots": ["d0", "d2 (delta of d1)"],
+           "edges_in": report.n_edges_in, "edges": coo.n_edges,
+           "lost_fraction": report.lost_fraction, "etl_ms": build_ms,
+           "cc_ms": ms, "components": int(np.unique(lab).size),
+           "store_deleted": not root.exists()}
+    log("slice " + json.dumps(row))
+    return row
+
+
+def cli_phase():
+    """One subprocess of ``python -m repro_torch.launch.run_graph --job
+    two-hop`` on the card; its pair count against the same query in this
+    process."""
+    import os
+    import re
+
+    from repro_torch.core import graph as G
+    from repro_torch.core.query import GraphPlatform, GraphQuery
+    from repro_torch.data import synthetic
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.run_graph",
+                          "--job", "two-hop"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"run_graph exited {out.returncode}: {out.stderr[-2000:]}")
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("[done]")]
+    m = re.search(r", (\d+)\)$", done[-1]) if done else None
+    if not m or "device=cuda" not in done[-1]:
+        fail(f"run_graph printed no result on the card: {out.stdout[-2000:]}")
+    n = 20_000                              # run_graph's default --vertices
+    u, i = synthetic.safety_bipartite_graph(n, n // 4, seed=0)
+    coo = G.build_coo(u, i, int(max(u.max(), i.max())) + 1)
+    want = GraphPlatform(coo).query(GraphQuery.two_hop(n_users=n)).value[2]
+    if int(m.group(1)) != want:
+        fail(f"run_graph counted {m.group(1)} pairs, this process {want}")
+    row = {"path": "run_graph --job two-hop", "wall_s": wall,
+           "pairs": want, "stdout": out.stdout.strip().splitlines()[-2:]}
+    log("slice " + json.dumps(row))
+    return row
+
+
 # ------------------------------------------------------------------ main
 
 def build_all():
@@ -1569,6 +2125,15 @@ def main() -> int:
         nbr, mask, w, _ = _holey(v, k, off, gen)
         check_kernel(f"holes {v}x{k}, rows off 16 B by {off}", nbr, mask, w,
                      gen, False, checks)
+    # the batched entry ([Vx, B] state) on the same kinds of layouts
+    for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200), (1001, 20),
+                 (40, 3000)):
+        check_batched(f"ragged {v}x{k}", *_ragged(v, k, gen), gen,
+                      (1, 3, 16, 33), False, checks)
+    for v, k, off in ((1000, 19, 3), (500, 129, 5), (40, 3000, 1)):
+        nbr, mask, w, _ = _holey(v, k, off, gen)
+        check_batched(f"holes {v}x{k}, rows off 16 B by {off}", nbr, mask,
+                      w, gen, (1, 3, 16, 33), False, checks)
     # the main-shape layouts, and the 2^24 one under a seeded permutation
     # of its ids (production ids carry no locality; the identifier
     # graph's small id offsets make its gathers nearly sequential)
@@ -1580,6 +2145,10 @@ def main() -> int:
                      (f"in-ELL 2^{MAIN_LOG2V}", g4)):
         ell = in_ell(g)
         check_kernel(label, ell.nbr, ell.mask, ell.w, gen, True, checks)
+        # the fused batches' shapes: 16 queries at 2^20, 8 at 2^24
+        check_batched(label, ell.nbr, ell.mask, ell.w, gen,
+                      (BATCH_WIDTH if g is g3 else SERVICE_TICKETS,), True,
+                      checks, names=("cc", "bfs", "sssp", "sssp_max"))
         if g is g4:
             permuted = permuted_in_ell(ell.nbr, ell.mask, ell.w, perm)
             del ell
@@ -1604,15 +2173,19 @@ def main() -> int:
     # 3-5. the paths; every count is set to 0 just before a path runs
     # and read just after it
     paths = {}
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 2 done")
     reset_counts()
     engine_rows, eng3 = engine_phase(g3, g_small)
     paths[f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}"] = \
         launch_counts()
     breakdown = superstep_breakdown(eng3, engine_rows, checks)
+    batch_rows = batch_phase(eng3, paths)
     del eng3
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 3 done")
     reset_counts()
     plat, platform_rows = platform_phase(g4)
     paths[f"GraphPlatform.query V=2^{MAIN_LOG2V}"] = launch_counts()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 4 done")
     reset_counts()
     ell, x, outs, spmv_rows = spmv_path(plat, gen)
     paths[f"LocalEngine._spmv V=2^{MAIN_LOG2V}"] = launch_counts()
@@ -1633,14 +2206,38 @@ def main() -> int:
     del o_perm, src, dst, p, perm
     check_combine(f"capped ELL 2^{MAIN_LOG2V}", ell.nbr, ell.mask, ell.w, x,
                   True, checks, path_out=outs)
-    del ell, outs, plat, g3, g4, g_small
+    del ell, outs
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 5 and the "
+        "main-shape checks done")
+
+    # 7. the rest of the graph platform (before phase 6, while the phase-4
+    # platform is alive for the service's fused batches)
+    slice_rows = []
+    t_phase = time.perf_counter()
+    reset_counts()
+    slice_rows.append(service_fusion(plat, g4))
+    paths[f"service fusion V=2^{MAIN_LOG2V}"] = launch_counts()
+    del plat, g4, g_small
+    reset_counts()
+    for run in (two_hop_phase, lambda: lpa_phase(g3), hits_phase, etl_phase,
+                cli_phase):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        slice_rows.append(run())
+        slice_rows[-1]["phase_s"] = time.perf_counter() - t0
+    paths["two-hop, LPA, HITS, ETL, CLI"] = launch_counts()
+    del g3
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"slice: phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 7 done")
 
     # 6. LM serving (the counts are reset inside, just before the path)
     paths[SERVE_PATH], serve_rows = serve_phase()
     must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
                 ("pregel_superstep", "ell_intersect"),
+            FORCED_BATCH_PATH: ("pregel_superstep_batched",),
             f"GraphPlatform.query V=2^{MAIN_LOG2V}": ("ell_intersect",),
             f"LocalEngine._spmv V=2^{MAIN_LOG2V}": ("ell_combine",),
             SERVE_PATH: ("flash_attention",)}
@@ -1651,6 +2248,9 @@ def main() -> int:
     log("launches by path " + json.dumps(paths))
 
     def by_path(name):
+        if name == "pregel_superstep":      # its 1-D entry alone
+            return {p: c[name] - c["pregel_superstep_batched"]
+                    for p, c in paths.items()}
         return {p: c[name] for p, c in paths.items()}
 
     def errs(kernel):
@@ -1671,10 +2271,17 @@ def main() -> int:
                 if r["layout"] == f"capped ELL 2^{MAIN_LOG2V}"
                 and r["op"] == "sum")
     attn = next(r for r in checks if r["layout"] == "gemma2-2b global")
+
+    def batched(log2v):
+        return next(r for r in checks
+                    if r.get("kernel") == "pregel_superstep_batched"
+                    and r["layout"] == f"in-ELL 2^{log2v}"
+                    and r["combo"] == "bfs")
+    bat, bat20 = batched(MAIN_LOG2V), batched(PHASE3_LOG2V)
     log(json.dumps({"summary": {
         "engine": engine_rows, "superstep_breakdown": breakdown,
-        "platform": platform_rows,
-        "spmv": spmv_rows, "serve": serve_rows,
+        "batch": batch_rows, "platform": platform_rows,
+        "spmv": spmv_rows, "slice": slice_rows, "serve": serve_rows,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1690,6 +2297,18 @@ def main() -> int:
          "permuted_ids": {k: step_perm[k] for k in numbers},
          "shape": f"connected components (int32, msg_src, min) over the "
                   f"V=2^{MAIN_LOG2V} in-ELL, K={step['K']}"},
+        {"name": "pregel_superstep_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
+                   "superstep.cu",
+         "replaces": "src/repro/kernels/pregel_superstep/kernel.py:43",
+         "launches": sum(by_path("pregel_superstep_batched").values()),
+         "launches_by_path": by_path("pregel_superstep_batched"),
+         "max_abs_err": errs("pregel_superstep_batched"),
+         **{k: bat[k] for k in numbers},
+         "library": bat["library"],
+         f"at_2^{PHASE3_LOG2V}_x{bat20['B']}": {k: bat20[k] for k in numbers},
+         "shape": f"BFS (float32, x+1, min) over [V, {bat['B']}] state on "
+                  f"the V=2^{MAIN_LOG2V} in-ELL, K={bat['K']}"},
         {"name": "ell_intersect", "route": "cuda",
          "source": "src/repro_torch/kernels/ell_intersect/csrc/"
                    "intersect.cu",

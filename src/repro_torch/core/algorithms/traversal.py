@@ -15,9 +15,10 @@ weights must be non-negative for SSSP (Bellman-Ford converges in at most
 V-1 supersteps; the ``halt`` fixpoint check stops far earlier on
 small-diameter social graphs).
 
-The fused batch runners (K sources as one ``[V, K]`` program) wait for
-``batched_spec`` in the next slice; until then the service runs each
-BFS/SSSP ticket solo, which gives the same bytes by contract.
+Compatible BFS or SSSP queries also run *fused*: B source sets as one
+``[V, B]`` program (``batched_spec``), each column bit-identical to its
+query run alone; on the card the fused variant of that program runs the
+kernel's batched entry.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from repro_torch.core import graph as G
 from repro_torch.core import planner as P
 from repro_torch.core import registry as R
 from repro_torch.core.partition import ShardedCOO, partition
-from repro_torch.core.pregel import PregelSpec, converged_halt, run_pregel
+from repro_torch.core.pregel import (PregelSpec, batched_spec,
+                                     converged_halt, run_pregel)
 from repro_torch.kernels.pregel_superstep.ops import (msg_src_plus_one,
                                                       msg_src_plus_w)
 
@@ -151,6 +153,48 @@ def _sources_tuple(s):
     return tuple(int(x) for x in np.atleast_1d(np.asarray(s)))
 
 
+# Fused batch runners: B relaxations with different sources are one
+# pregel program over [V, B] state (batched_spec lifts the scalar spec
+# onto a trailing batch axis).  The min monoid is exact per column, so
+# column b is bit-identical to running query b alone — the service's
+# fusion contract.  Queries fuse only within an equal max_iters group
+# (the fuse key), so the shared loop bound is every ticket's own.
+
+def _relax_batch(spec, eng, source_sets, max_iters):
+    V = eng.coo.n_vertices
+    mi = max_iters if max_iters is not None else V
+    # built on the device: a host copy is n_pad * B * 4 bytes (512 MB at
+    # 2^24 x 8)
+    init = torch.full((eng.sharded.n_pad, len(source_sets)), float("inf"),
+                      device=eng.device)
+    for b, sources in enumerate(source_sets):
+        init[torch.as_tensor(np.asarray(sources, dtype=np.int64),
+                             device=eng.device), b] = 0.0
+    # batched_spec propagates the superstep-variant declarations, so the
+    # fused batch rides the frontier/fused path where supported — still
+    # bit-identical per column (min is exact under any strategy).
+    dist, iters = eng.run_superstep(batched_spec(spec), init, mi,
+                                    variant="auto")
+    values = [dist[:V, b] for b in range(len(source_sets))]
+    return values, int(iters), {"pregel_calls": 1}
+
+
+def _bfs_batch(eng, params_list):
+    return _relax_batch(_BFS_SPEC, eng,
+                        [p["sources"] for p in params_list],
+                        params_list[0]["max_iters"])
+
+
+def _sssp_batch(eng, params_list):
+    return _relax_batch(_SSSP_SPEC, eng,
+                        [(p["source"],) for p in params_list],
+                        params_list[0]["max_iters"])
+
+
+def _relax_fuse_key(params):
+    return ("max_iters", params["max_iters"])
+
+
 def _relax_incremental(spec, eng, sources, seed, delta):
     """Localized repair for *add-only* deltas: seed distances from the
     ancestor's converged table (old distances are path lengths still
@@ -227,6 +271,8 @@ R.register(R.AlgorithmDef(
     count_method="reachable_count",
     cost=_bfs_cost,
     variants=R.superstep_variants(_BFS_SPEC),
+    batch_runner=_bfs_batch,
+    fuse=_relax_fuse_key,
     incremental=_bfs_incremental,
     example_params={"sources": (0,)},
     doc="Hop distances from a source set along directed edges.",
@@ -242,6 +288,8 @@ R.register(R.AlgorithmDef(
     ),
     cost=_sssp_cost,
     variants=R.superstep_variants(_SSSP_SPEC),
+    batch_runner=_sssp_batch,
+    fuse=_relax_fuse_key,
     incremental=_sssp_incremental,
     example_params={"source": 0},
     doc="Single-source weighted shortest paths (non-negative weights).",

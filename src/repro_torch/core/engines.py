@@ -517,6 +517,70 @@ class Engine:
             meta["superstep"] = sink[-1]
         return QueryResult(value, self.name, iters, meta)
 
+    def run_batch(self, algorithm, params_list,
+                  count_only=None, profile: bool = False) -> list:
+        """Execute B compatible queries of one algorithm as a single
+        fused program (the service's batch-packing path, NScale-style).
+
+        The caller guarantees compatibility — same algorithm, same graph
+        (this engine's), equal ``fuse`` keys.  Returns one
+        ``QueryResult`` per entry of ``params_list``, in order; each
+        value is bit-identical to ``run`` on the same params alone.
+        ``count_only`` is per-query: fused tickets that only want the
+        count get the registered reducer applied to their slice.  Every
+        member's meta carries ``fused`` (batch size, its index, the
+        runner's counters) and, as ``run`` reports it, the superstep
+        variant the fused program realized.
+        """
+        defn = R.get(algorithm) if isinstance(algorithm, str) else algorithm
+        if defn.batch_runner is None:
+            raise ValueError(f"{defn.name!r} has no batch runner")
+        if self.name not in defn.engines:
+            raise ValueError(
+                f"{defn.name!r} supports engine(s) {defn.engines}, "
+                f"not {self.name!r}")
+        co = list(count_only) if count_only is not None \
+            else [False] * len(params_list)
+        if len(co) != len(params_list):
+            raise ValueError("count_only length mismatch")
+        ps = [defn.validate(p) for p in params_list]
+        if defn.requires_symmetric:
+            G.require_symmetric(self.coo, defn.name)
+        sink = None
+        realized = None
+        with self._exec_lock, self._device_scope():
+            self.n_runs += 1
+            self._realized = []
+            if profile:
+                self._profile_sink = []
+            try:
+                R.apply_fault(defn.name)  # one fused execution, one fault
+                values, iters, fused_meta = defn.batch_runner(self, ps)
+            finally:
+                realized, self._realized = self._realized, None
+                if profile:
+                    sink, self._profile_sink = self._profile_sink, None
+        if len(values) != len(ps):
+            raise ValueError(
+                f"{defn.name}: batch runner returned {len(values)} values "
+                f"for {len(ps)} queries")
+        iters = int(iters) if iters is not None else None
+        out = []
+        for i, (value, c) in enumerate(zip(values, co)):
+            if c and defn.count is not None:
+                value = defn.count(value)
+            meta = {"fused": {"batch_size": len(ps), "index": i,
+                              **(fused_meta or {})}}
+            if realized:
+                meta["realized_variant"] = realized[-1]
+            if sink:
+                # one fused execution -> the same shared counters on
+                # every member's result (stripped, like 'fused', from
+                # cached re-serves)
+                meta["superstep"] = sink[-1]
+            out.append(QueryResult(value, self.name, iters, meta))
+        return out
+
     def _select_variant(self, defn: R.AlgorithmDef, params: dict,
                         count_only: bool) -> Optional[str]:
         """Cheapest feasible variant for this engine's graph (the same

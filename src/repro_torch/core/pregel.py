@@ -25,6 +25,8 @@ states for min/max monoids and integer-valued sums.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Callable, Optional
 
 import torch
@@ -162,11 +164,89 @@ def reduced_precision(spec: PregelSpec, dtype,
 
 def converged_halt(old, new, valid):
     """The standard fixpoint predicate: no valid vertex changed state.
-    Shared by every to-convergence vertex program (CC, traversal)."""
+    Shared by every to-convergence vertex program (CC, traversal, LPA,
+    k-core peeling)."""
     return torch.logical_not(torch.any(torch.logical_and(valid, new != old)))
 
 
+class Lifted:
+    """A scalar message lifted onto a trailing batch axis.
+
+    Calls ``torch.func.vmap`` of ``base``; ``base`` stays reachable so
+    that the fused kernel's wrapper can find the compiled edge program
+    behind a batched message (it picks programs by identity)."""
+
+    def __init__(self, base: Callable, in_dims):
+        self.base = base
+        self._fn = torch.func.vmap(base, in_dims=in_dims, out_dims=-1)
+
+    def __call__(self, *args):
+        return self._fn(*args)
+
+
+@functools.lru_cache(maxsize=64)
+def batched_spec(spec: PregelSpec) -> PregelSpec:
+    """Lift a scalar vertex program onto a trailing batch axis.
+
+    The returned spec runs B independent instances of ``spec`` as *one*
+    program over state ``[Vl, B]`` — the fused-batch substrate of the
+    service layer (B BFS frontiers with different sources share every
+    gather and segment-combine of every superstep).  Each column's
+    arithmetic is the unbatched program's, element for element (vmap
+    only widens the ops; ``w`` is shared by every column), and the
+    monoid combines are exact per column, so column ``b`` of the fused
+    result is bit-identical to running instance ``b`` alone.  The fused
+    ``halt`` is the AND over columns; converged columns sit at their
+    fixpoint (apply is a no-op there) while stragglers finish.
+
+    Memoized (bounded) so repeated fusions of the same program share one
+    spec.  Structured (grouped-monoid) messages split columns
+    positionally and cannot carry a trailing batch axis — rejected up
+    front.
+    """
+    if isinstance(spec.combine, tuple):
+        raise ValueError(
+            "batched_spec: structured (grouped-monoid) messages cannot "
+            "be lifted onto a batch axis")
+    msg_axes = (-1, None, -1) if spec.needs_dst_state else (-1, None)
+    vmap = torch.func.vmap
+    message = Lifted(spec.message, msg_axes)
+    # with a global_value the per-column scalars arrive as a trailing-B
+    # vector and each column's apply reads its own entry
+    gval_axis = None if spec.global_value is None else -1
+    apply_ = vmap(spec.apply, in_dims=(-1, -1, None, gval_axis), out_dims=-1)
+
+    halt = None
+    if spec.halt is not None:
+        per_col = vmap(spec.halt, in_dims=(-1, -1, None))
+
+        def halt(old, new, valid):
+            return torch.all(per_col(old, new, valid))
+
+    gval = None
+    if spec.global_value is not None:
+        gval = vmap(spec.global_value, in_dims=(-1, None, None), out_dims=-1)
+
+    # activity is per vertex: a vertex is active if ANY column is (the
+    # frontier loop reduces trailing axes with `any` after this)
+    frontier_init = None
+    if spec.frontier_init is not None:
+        frontier_init = vmap(spec.frontier_init, in_dims=-1, out_dims=-1)
+
+    return PregelSpec(
+        message=message, combine=spec.combine, apply=apply_,
+        identity=spec.identity, halt=halt, global_value=gval,
+        needs_dst_state=spec.needs_dst_state,
+        global_over_agg=spec.global_over_agg,
+        elementwise_message=spec.elementwise_message,
+        frontier_mode=spec.frontier_mode,
+        frontier_init=frontier_init,
+        message_dtype=spec.message_dtype,
+        allow_inexact_sum=spec.allow_inexact_sum)
+
+
 _REDUCE = {"min": "amin", "max": "amax"}
+_SUM_CHUNK = 1 << 24      # message elements cast to float64 at a time
 
 
 def _local_combine(msgs, index, v_local, op, identity):
@@ -180,6 +260,14 @@ def _local_combine(msgs, index, v_local, op, identity):
     identity normalization does.  Grouped ``op`` splits the message's
     last axis into ``(op, width)`` column groups, each combined under its
     own monoid.
+
+    float32 sums accumulate in float64 and round once: a running float32
+    sum over one vertex's messages can lose up to ``degree * 2^-24`` of
+    its value, and power-law graphs have vertices of in-degree 10^5-10^6
+    (with float32 accumulation HITS on the 2^22 user-follow graph of
+    ``chip_smoke.py`` drifts past its 1e-4 tolerance).  Integer-valued
+    sums are exact either way, so they stay bit-identical to the fused
+    and frontier paths.
     """
     if isinstance(op, tuple):
         parts, c0 = [], 0
@@ -190,8 +278,18 @@ def _local_combine(msgs, index, v_local, op, identity):
         return torch.cat(parts, dim=-1)
     shape = (v_local + 1,) + tuple(msgs.shape[1:])
     if op == "sum":
-        out = torch.zeros(shape, dtype=msgs.dtype, device=msgs.device)
-        return out.index_add_(0, index, msgs)[:v_local]
+        if msgs.dtype != torch.float32:
+            out = torch.zeros(shape, dtype=msgs.dtype, device=msgs.device)
+            return out.index_add_(0, index, msgs)[:v_local]
+        out = torch.zeros(shape, dtype=torch.float64, device=msgs.device)
+        # float64 copies of a slice of rows at a time: a whole copy would
+        # add twice the messages' bytes (16.6 GB more for LPA's [E, 64]
+        # mass channels at 2^22)
+        rows = max(1, _SUM_CHUNK // max(1, math.prod(msgs.shape[1:])))
+        for r0 in range(0, msgs.shape[0], rows):
+            out.index_add_(0, index[r0:r0 + rows],
+                           msgs[r0:r0 + rows].to(torch.float64))
+        return out[:v_local].to(torch.float32)
     if op not in _REDUCE:
         raise ValueError(op)
     out = torch.full(shape, identity, dtype=msgs.dtype, device=msgs.device)
@@ -241,6 +339,8 @@ def run_pregel(
     Returns ``(final_state [V], iterations_run)``.  The edge shards of a
     1-D ``ShardedCOO`` are concatenated and combined as one.  A device
     mesh (and with it the 2-D vertex-sharded layout) is not ported yet.
+    State ``[V, B]`` under a ``batched_spec`` program is gathered and
+    combined one column at a time; apply and halt see all of it.
     """
     check_precision(spec)
     if mesh is not None or sg.vertex_layout == "sharded":
@@ -257,18 +357,31 @@ def run_pregel(
         else None
     seg = sg.combine_index()
     freeze = v_local > V
+    by_column = isinstance(spec.message, Lifted) and init_state.dim() == 2
 
-    def one_iter(state):
+    def messages(message, state):
         src_state = state.index_select(0, src_idx)
         if spec.needs_dst_state:
-            msgs = spec.message(src_state, sg.w,
-                                state.index_select(0, dst_idx))
+            msgs = message(src_state, sg.w, state.index_select(0, dst_idx))
         else:
-            msgs = spec.message(src_state, sg.w)
+            msgs = message(src_state, sg.w)
         if spec.message_dtype is not None:
             msgs = msgs.to(as_dtype(spec.message_dtype))
-        agg = _local_combine(msgs, seg, v_local, spec.combine,
-                             spec.identity)
+        return _local_combine(msgs, seg, v_local, spec.combine,
+                              spec.identity)
+
+    def one_iter(state):
+        if by_column:
+            # a batched_spec program: each column gathered, messaged and
+            # combined as its query alone is (torch gathers [E, B] rows
+            # several times slower than B columns of [E]).  The state and
+            # the aggregate stay [B, V] in memory: the vmapped hooks keep
+            # that layout, so the transpose below copies nothing
+            cols = state.t().contiguous()
+            agg = torch.stack([messages(spec.message.base, col)
+                               for col in cols]).t()
+        else:
+            agg = messages(spec.message, state)
         new = spec.apply(state, agg, ids, _gval(spec, state, agg, ids,
                                                 valid))
         if freeze:                              # freeze padding slots
@@ -278,7 +391,11 @@ def run_pregel(
 
     halt = None if spec.halt is None else \
         (lambda old, new: spec.halt(old, new, valid))
-    return _superstep_loop(one_iter, init_state, max_iters, halt)
+    if not by_column:
+        return _superstep_loop(one_iter, init_state, max_iters, halt)
+    state, iters = _superstep_loop(one_iter, init_state.t().contiguous().t(),
+                                   max_iters, halt)
+    return state.contiguous(), iters
 
 
 def _check_superstep_spec(spec: PregelSpec, what: str) -> None:
@@ -314,17 +431,20 @@ def run_pregel_fused(
     kernel for state on the card, its plain version for state on the
     CPU.  ``use_kernels=False`` runs the plain version wherever the state
     lives (parity runs).  ``ell`` is the uncapped ``direction='in'``
-    layout over the full graph (every edge retained).
+    layout over the full graph (every edge retained).  State ``[V, B]``
+    (a ``batched_spec`` program) is handed to the kernel row-major.
     """
     _check_superstep_spec(spec, "run_pregel_fused")
     V = ell.n_vertices
     if init_state.shape[0] != V:
-        raise ValueError("run_pregel_fused: state must be unpadded [V]")
+        raise ValueError("run_pregel_fused: state must be unpadded: "
+                         "[V] or [V, B]")
     step = superstep_ops.fused_superstep if use_kernels else superstep_plain
     ids = torch.arange(V, dtype=torch.int32, device=init_state.device)
     valid = ids < V        # all True; uniform halt/global signature
 
     def one_iter(state):
+        state = state.contiguous()
         agg = step(ell.nbr, ell.mask, ell.w, state, message=spec.message,
                    op=spec.combine, identity=spec.identity,
                    message_dtype=spec.message_dtype)
@@ -398,7 +518,8 @@ def run_pregel_frontier(
     V = ell.n_vertices
     K = ell.nbr.shape[1]
     if init_state.shape[0] != V:
-        raise ValueError("run_pregel_frontier: state must be unpadded [V]")
+        raise ValueError("run_pregel_frontier: state must be unpadded: "
+                         "[V] or [V, B]")
     dev = init_state.device
     trailing = tuple(init_state.shape[1:])
     delta = mode == "delta"

@@ -88,6 +88,10 @@ class GraphQuery:
                       max_iters=max_iters)
 
     @classmethod
+    def two_hop(cls, n_users: int, count_only=False, dedup=True):
+        return cls.of("two_hop", count_only, n_users=n_users, dedup=dedup)
+
+    @classmethod
     def degree_stats(cls):
         return cls.of("degree_stats", True)
 
@@ -103,6 +107,13 @@ class GraphQuery:
     def sssp(cls, source: int, max_iters=None):
         """Single-source weighted shortest paths (non-negative weights)."""
         return cls.of("sssp", source=source, max_iters=max_iters)
+
+    @classmethod
+    def label_propagation(cls, count_only=False, max_iters=30,
+                          n_channels=64):
+        """Community detection; ``count_only`` returns ``num_communities``."""
+        return cls.of("label_propagation", count_only, max_iters=max_iters,
+                      n_channels=n_channels)
 
     @classmethod
     def triangle_count(cls):

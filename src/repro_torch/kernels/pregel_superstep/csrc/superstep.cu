@@ -430,3 +430,196 @@ extern "C" int pregel_superstep(const void* nbr, const void* mask,
   }
   return static_cast<int>(err);
 }
+
+// ---------------------------------------------------------------------------
+// The same superstep over batched state: x is [Vx, B] row-major, out is
+// [V, B], and column b of out is the 1-D superstep of column b of x, w
+// shared by every column:
+//
+//     agg[v, b] = reduce_k( op, mask[v,k] ? cast(message(x[nbr[v,k], b],
+//                                                        w[v,k]))
+//                                         : fill )
+//
+// This is the fused batch of B queries that core/pregel.py:batched_spec
+// lifts onto a trailing axis (the service's fusion of B BFS or SSSP
+// tickets).  It replaces the same TPU kernel as the 1-D entry above; the
+// reference runs such state through its jnp version instead
+// (src/repro/kernels/pregel_superstep/ops.py:1-12), the port through this
+// kernel.  Plain version: ref.py:superstep_plain, which takes trailing
+// dims; wrapper: ops.py:fused_superstep, which routes 2-D state here.
+//
+// What bounds it: bytes, as the 1-D entry (the mask in full, nbr and w at
+// the live slots, x and out once), with x and out B times as wide.
+//
+// Design, simple first:
+//   * A warp owns a row (warps walk the rows grid-stride).  Lanes take the
+//     row's slots 32 at a time: each lane reads one slot's mask byte, and
+//     its id (clamped into [0, Vx)) and weight only where the slot is
+//     live; a ballot and shuffles hand every slot to the whole warp, in
+//     slot order.
+//   * Lanes are the columns: at each live slot, lane b gathers x[id, b],
+//     so a warp reads 32 neighbouring 4-byte words of row id, and each
+//     lane combines its column in slot order, the fill at a dead slot, as
+//     the 1-D kernel does: min/max bit-identical to the plain version, a
+//     float sum in a fixed order.  B > 32 walks the columns in chunks of
+//     32, reading the row's slots again for each chunk.
+//   * K = 0 rows are the fill.  Offsets are 64-bit.  The launch goes to
+//     the caller's stream; the entry point returns cudaGetLastError().
+
+namespace {
+
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
+template <typename TIn, int PROG, int OP, int OUT>
+__global__ void __launch_bounds__(kThreads) superstep_batched_kernel(
+    const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
+    const float* __restrict__ w, const TIn* __restrict__ x,
+    typename OutType<OUT>::type* __restrict__ out, long long V, int K,
+    int Vx, int B, double fill) {
+  using Acc = typename AccType<OUT>::type;
+  constexpr bool reads_w = PROG == SRC_PLUS_W || PROG == SRC_TIMES_W;
+  const int lane = threadIdx.x & 31;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const Acc fill_acc = to_acc<OUT>(fill);
+  for (long long v = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                     (threadIdx.x >> 5);
+       v < V; v += warps) {
+    const long long row = v * K;
+    for (int c0 = 0; c0 < B; c0 += 32) {
+      const int b = c0 + lane;
+      const bool has_col = b < B;
+      Acc acc = K == 0 ? fill_acc : neutral<OP, Acc>();
+      for (int k0 = 0; k0 < K; k0 += 32) {
+        const int k = k0 + lane;
+        bool live = false;
+        int id = 0;
+        float wk = 0.f;
+        if (k < K && __ldcs(mask + row + k)) {
+          live = true;
+          id = __ldcs(nbr + row + k);
+          id = id < 0 ? 0 : (id >= Vx ? Vx - 1 : id);
+          if constexpr (reads_w) wk = __ldcs(w + row + k);
+        }
+        const unsigned live_bits = __ballot_sync(kFullWarp, live);
+        const int n = K - k0 < 32 ? K - k0 : 32;
+        for (int j = 0; j < n; ++j) {
+          const int idj = __shfl_sync(kFullWarp, id, j);
+          const float wj = __shfl_sync(kFullWarp, wk, j);
+          Acc val = fill_acc;
+          if (((live_bits >> j) & 1u) && has_col) {
+            val = to_acc<OUT>(edge_program<PROG>(
+                __ldg(x + static_cast<long long>(idj) * B + b), wj));
+          }
+          acc = combine<OP>(acc, val);
+        }
+      }
+      if (has_col) out[v * B + b] = store_value<OUT>(acc);
+    }
+  }
+}
+
+struct BatchedArgs {
+  const void* nbr;
+  const void* mask;
+  const void* w;
+  const void* x;
+  void* out;
+  long long V;
+  int K;
+  int Vx;
+  int B;
+  double fill;
+  cudaStream_t stream;
+};
+
+template <typename TIn, int PROG, int OP, int OUT>
+cudaError_t launch_batched(const BatchedArgs& a) {
+  auto kernel = superstep_batched_kernel<TIn, PROG, OP, OUT>;
+  static int resident[64] = {0};     // as in launch() above
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return err;
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long rows_per_block = kThreads / 32;
+  const long long work = (a.V + rows_per_block - 1) / rows_per_block;
+  const long long blocks = work < resident[dev] ? work : resident[dev];
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+      static_cast<const int*>(a.nbr), static_cast<const uint8_t*>(a.mask),
+      static_cast<const float*>(a.w), static_cast<const TIn*>(a.x),
+      static_cast<typename OutType<OUT>::type*>(a.out), a.V, a.K, a.Vx, a.B,
+      a.fill);
+  return cudaGetLastError();
+}
+
+template <typename TIn, int PROG, int OP>
+cudaError_t batched_by_out(int out_type, const BatchedArgs& a) {
+  constexpr bool int_msg = PROG == SRC && std::is_same<TIn, int>::value;
+  switch (out_type) {
+    case I32:
+      if constexpr (int_msg) return launch_batched<TIn, PROG, OP, I32>(a);
+      return cudaErrorInvalidValue;
+    case F32: return launch_batched<TIn, PROG, OP, F32>(a);
+    case BF16: return launch_batched<TIn, PROG, OP, BF16>(a);
+    case F16: return launch_batched<TIn, PROG, OP, F16>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TIn, int PROG>
+cudaError_t batched_by_op(int op, int out_type, const BatchedArgs& a) {
+  switch (op) {
+    case SUM: return batched_by_out<TIn, PROG, SUM>(out_type, a);
+    case MIN: return batched_by_out<TIn, PROG, MIN>(out_type, a);
+    case MAX: return batched_by_out<TIn, PROG, MAX>(out_type, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TIn>
+cudaError_t batched_by_prog(int program, int op, int out_type,
+                            const BatchedArgs& a) {
+  switch (program) {
+    case SRC: return batched_by_op<TIn, SRC>(op, out_type, a);
+    case SRC_PLUS_ONE: return batched_by_op<TIn, SRC_PLUS_ONE>(op, out_type, a);
+    case SRC_PLUS_W: return batched_by_op<TIn, SRC_PLUS_W>(op, out_type, a);
+    case SRC_TIMES_W: return batched_by_op<TIn, SRC_TIMES_W>(op, out_type, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// C entry point of the batched superstep (bound with ctypes): x is
+// [Vx, B] row-major, out [V, B].  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for what this file does not compile.
+extern "C" int pregel_superstep_batched(
+    const void* nbr, const void* mask, const void* w, const void* x,
+    void* out, long long V, long long K, long long Vx, long long B,
+    int state_type, int program, int op, int out_type, double fill,
+    void* stream) {
+  if (V <= 0 || B == 0) return 0;
+  if (K < 0 || K > INT_MAX || Vx < 1 || Vx > INT_MAX || B < 1 ||
+      B > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  const BatchedArgs a{nbr, mask, w, x, out, V, static_cast<int>(K),
+                      static_cast<int>(Vx), static_cast<int>(B), fill,
+                      static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  switch (state_type) {
+    case I32: err = batched_by_prog<int>(program, op, out_type, a); break;
+    case F32: err = batched_by_prog<float>(program, op, out_type, a); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

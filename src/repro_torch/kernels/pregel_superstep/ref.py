@@ -15,10 +15,14 @@ normalized to the identity).
 ``message`` must be elementwise in ``(src_state, w)`` and
 shape-polymorphic (called on ``[V, K]`` gathered tiles here and on
 ``[E]`` edge vectors by the dense path).  Trailing state dims are
-supported (messages ``[V, K, ...]`` reduce over axis 1).
+supported (messages ``[V, K, ...]`` reduce over axis 1): state ``[Vx,
+B]`` with a message lifted by ``core.pregel.batched_spec`` is the fused
+batch of B queries.
 
-The wrapper (``ops.fused_superstep``) runs this for tensors on the CPU;
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+The wrapper (``ops.fused_superstep``) runs this for tensors on the CPU,
+``[Vx]`` and ``[Vx, B]`` state alike; ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold both CUDA entries (``pregel_superstep``
+and ``pregel_superstep_batched``) against it on the card.
 """
 from __future__ import annotations
 

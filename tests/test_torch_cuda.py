@@ -193,6 +193,106 @@ def test_kernel_float_sum_repeats_its_bytes():
                                rtol=1e-5, atol=0.0)
 
 
+# ------------------------------------------- pregel_superstep, [Vx, B] state
+
+@pytest.mark.parametrize("b", [1, 3, 16, 33])
+@pytest.mark.parametrize("k", [0, 1, 19, 40, 3000])
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("msg,x_kind,op,md,ident", LAYOUT_COMBOS)
+def test_batched_kernel_matches_plain(b, k, off, msg, x_kind, op, md,
+                                      ident):
+    """The batched entry (state [Vx, B], a batched lift of the edge
+    program, w shared by the columns) on every layout case: min/max and
+    int32 sums bit-equal to the plain version, float sums within rtol
+    1e-5; B past one warp's 32 lanes included."""
+    from repro_torch.core.pregel import Lifted
+    v = 37 if k >= 1000 else 301
+    nbr, mask, w, vx = _layout(v, k, seed=k * 7 + off + b, off=off)
+    x = torch.stack([_state_x(x_kind, vx, seed=k + off + 11 * c)
+                     for c in range(b)], dim=1).contiguous()
+    kw = dict(message=Lifted(msg, (-1, None)), op=op, identity=ident,
+              message_dtype=md)
+    before = (ops.KERNEL_LAUNCHES, ops.BATCHED_LAUNCHES)
+    got = ops.fused_superstep(nbr, mask, w, x, **kw)
+    torch.cuda.synchronize()
+    assert (ops.KERNEL_LAUNCHES, ops.BATCHED_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    want = superstep_plain(nbr, mask, w, x, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape == (v, b)
+    if op == "sum" and got.dtype != torch.int32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    else:
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    # each column is the 1-D kernel on that column
+    for c in (0, b - 1):
+        one = ops.fused_superstep(nbr, mask, w, x[:, c].contiguous(),
+                                  message=msg, op=op, identity=ident,
+                                  message_dtype=md)
+        if op == "sum" and got.dtype != torch.int32:
+            torch.testing.assert_close(got[:, c], one, rtol=1e-5, atol=0.0)
+        else:
+            assert torch.equal(got[:, c].contiguous().view(torch.uint8),
+                               one.view(torch.uint8))
+
+
+def test_batched_kernel_rejects_what_it_does_not_take():
+    from repro_torch.core.pregel import Lifted
+    nbr, mask, w, x = _inputs(10, 3, 10, 1, "unit")
+    x2 = x[:, None].repeat(1, 4)
+    lifted = Lifted(ops.msg_src, (-1, None))
+    with pytest.raises(ValueError, match="compiled edge program"):
+        ops.fused_superstep(nbr, mask, w, x2,
+                            message=Lifted(lambda s, w: s, (-1, None)),
+                            op="min", identity=INF)
+    with pytest.raises(ValueError, match="1-D"):          # lift, 1-D state
+        ops.fused_superstep(nbr, mask, w, x, message=lifted, op="min",
+                            identity=INF)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_superstep(nbr, mask, w, x2.t().contiguous().t(),
+                            message=lifted, op="min", identity=INF)
+
+
+@pytest.mark.parametrize("algo,ps", [
+    ("bfs", [{"sources": (0,)}, {"sources": (7, 900)}, {"sources": (1500,)},
+             {"sources": (2999,)}]),
+    ("sssp", [{"source": s} for s in (0, 11, 400, 2000, 2500)]),
+])
+def test_fused_batch_on_the_card_launches_the_batched_kernel(algo, ps,
+                                                             monkeypatch):
+    """``run_batch`` with the fused variant forced: one batched launch a
+    superstep, every column byte-equal to its solo run on the CPU."""
+    from repro_torch.core.engines import Engine
+    real = Engine.run_superstep
+    monkeypatch.setattr(
+        Engine, "run_superstep",
+        lambda self, spec, s, mi, variant=None, init_active=None:
+        real(self, spec, s, mi, variant="fused", init_active=init_active))
+    gpu = LocalEngine(_graph("cuda"))
+    cpu = LocalEngine(_graph("cpu"), device="cpu")
+    before = ops.BATCHED_LAUNCHES
+    got = gpu.run_batch(algo, ps)
+    torch.cuda.synchronize()
+    assert ops.BATCHED_LAUNCHES - before == got[0].iterations
+    for p, r in zip(ps, got):
+        assert r.meta["realized_variant"] == "fused"
+        want = cpu.run(algo, p)
+        assert torch.equal(r.value.cpu().view(torch.uint8),
+                           want.value.view(torch.uint8))
+
+
+def test_service_fuses_tickets_on_the_card():
+    from repro_torch.core.service import GraphAnalyticsService
+    svc = GraphAnalyticsService(interactive_threshold_s=0.0)
+    svc.add_graph("g", _graph("cuda"))
+    tickets = [svc.submit("g", GraphQuery.bfs([s])) for s in (0, 9, 2000)]
+    svc.drain()
+    assert svc.stats["fused_batches"] == 1
+    cpu = GraphPlatform(_graph("cpu"), device="cpu")
+    for t in tickets:
+        assert torch.equal(svc.result(t).value.cpu().view(torch.uint8),
+                           cpu.query(t.query).value.view(torch.uint8))
+
+
 def _graph(device, weighted=True):
     sets = synthetic.identifier_edge_sets(3000, n_sets=4, mean_degree=1.5,
                                           seed=7)

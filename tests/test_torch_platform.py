@@ -208,10 +208,13 @@ def test_submit_drain_matches_call(graphs):
         assert _bits(got) == _bits(want) if not isinstance(want, int) \
             else got == want
     m = svc.metrics()
-    assert m["counters"]["executed"] == len(qs)
+    # the two BFS tickets fuse into one execution
+    assert m["counters"]["executed"] == len(qs) - 1
+    assert svc.stats["fused_batches"] == 1
     assert m["trace"]["tickets"] == len(qs)
     text = svc.metrics_text()
-    assert obs.parse_prometheus(text)["gas_counters_executed"] == len(qs)
+    assert obs.parse_prometheus(text)["gas_counters_executed"] == \
+        len(qs) - 1
     assert "execute" in svc.explain(tickets[0])
 
 
@@ -230,11 +233,17 @@ def test_two_pool_federation_returns_the_same_bytes(graphs):
 def test_registry_holds_the_slice():
     from repro_torch.core import registry as R
     assert R.names() == ["bfs", "connected_components", "degree_stats",
-                         "k_core", "pagerank", "sssp", "triangle_count"]
+                         "hits", "jaccard", "k_core", "label_propagation",
+                         "pagerank", "sssp", "triangle_count", "two_hop"]
     for name in ("bfs", "connected_components", "k_core", "sssp"):
         assert set(R.get(name).variants) == {"dense", "fused", "frontier"}
     assert set(R.get("triangle_count").variants) == {"bitset", "intersect"}
     assert R.get("k_core").incremental is not None
+    fusable = sorted(n for n in R.names() if R.get(n).fusable)
+    assert fusable == ["bfs", "jaccard", "sssp"]
+    assert R.get("jaccard").engines == ("local",)
+    assert R.get("hits").warm_start is not None
+    assert R.get("two_hop").count_run is not None
 
 
 @pytest.mark.parametrize("algo", ["bfs", "sssp", "connected_components",
@@ -275,6 +284,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "import repro_torch.core.query, repro_torch.core.service\n"
             "import repro_torch.core.algorithms\n"
             "import repro_torch.core.algorithms.triangles\n"
+            "import repro_torch.core.algorithms.legacy\n"
+            "import repro_torch.core.registry as R\n"
+            "R.ensure_loaded()\n"
+            "import repro_torch.data.etl, repro_torch.launch.run_graph\n"
             "import repro_torch.kernels.ell_intersect\n"
             "import repro_torch.kernels.ell_combine\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
