@@ -9,11 +9,13 @@ It builds the port's CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card, drives the port's paths
 (graph queries through ``LocalEngine.run``, ``LocalEngine.run_batch`` and
 ``GraphPlatform.query``, the service's fused batches, ``LocalEngine._spmv``,
-two-hop, label propagation, HITS, the ETL pipeline, the graph CLI, and
-Gemma-2 2B serving through ``greedy_generate``) and checks the answers
-against host oracles (scipy, numpy) and the plain versions on the card.
-Phases, in the order they run (7 runs between 5 and 6); any failure exits
-non-zero and prints no result line:
+two-hop, label propagation, HITS, the ETL pipeline, the graph CLI,
+Gemma-2 2B serving through ``greedy_generate`` and training through
+``make_train_step``, and the supervised restart of ``launch/train.py``)
+and checks the answers against host oracles (scipy, numpy), the plain
+versions on the card and float32 models.  Phases, in the order they run
+(7 runs between 5 and 6); any failure exits non-zero and prints no result
+line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -117,6 +119,30 @@ non-zero and prints no result line:
               memory, the kernel's device time inside the prefill (CUDA
               events around its 26 launches) and its share
 
+  8. train    Gemma-2 2B training at full width (bf16 params over a float32
+              master, remat, chunked attention; random weights from seed
+              0): 4 steps of batch 2 x 4096 (``SyntheticTokens``, a seeded
+              quarter of the labels masked) through ``make_train_step``,
+              timed (step ms, tokens/s, peak memory, model TFLOP/s and MFU
+              from ``utils/analytic`` over the card's dense bf16 peak);
+              every loss and gradient norm finite; no kernel launched;
+              step 0's loss against the float32 CE of ``forward()``'s
+              logits on the same weights, within limits scaled by the bf16
+              model's distance from a float32 model on the same weights,
+              with planted faults (the -1 mask ignored, the labels one
+              position late) that must land outside; one step at
+              microbatches=2 from the same state against microbatches=1
+              (gradient norm and updated masters), with a planted fault
+              (the second microbatch dropped) that must break a limit.
+              Then SmolLM-360M at full width through three
+              ``python -m repro_torch.launch.train`` processes at once
+              (deterministic kernels, checkpoints under ``build/``,
+              deleted after): uninterrupted, failing at step 5 and
+              restarted from its step-4 checkpoint, and with int8
+              gradient compression; the restarted run's final state files
+              equal the uninterrupted run's byte for byte, and every run's
+              loss falls
+
 Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
 ``OrientedELL``, and over one built from the same edges under the
 seeded permutation of ids, ell_spmv over the capped ELL) run after
@@ -134,6 +160,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1995,6 +2022,393 @@ def cli_phase():
     return row
 
 
+# --------------------------------------------------------------- phase 8
+
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_PATH = f"DenseLM train {TRAIN_ARCH}"
+# train_4k's sequence; its global batch of 256 (a pod's) cut to 2 for one
+# card
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS = 4
+TRAIN_SEED = 0
+# AdamWConfig's default peak.  launch/train.py's default, 3e-3, suits its
+# --reduced models: at full width the first steps move every weight by
+# about lr * sign(g), 15 % of a 0.02-scale embedding, and the loss rose
+TRAIN_LR = 3e-4
+# labels masked (-1) at a seeded quarter of the positions, as padding
+# would be: the loss check's planted fault "mask ignored" needs them
+TRAIN_MASK_FRACTION = 0.25
+# Step 0's loss against the float32 CE of forward()'s logits on the same
+# weights and batch: within TRAIN_NOISE_FACTOR noises, a noise being the
+# bf16 model's own distance from the float32 model on the same weights
+# (the CE of each one's forward logits), read in the same run.  Planted
+# faults in the CE (the -1 mask ignored; the labels one position late)
+# must land outside.
+TRAIN_NOISE_FACTOR = 2.0
+# One step at microbatches=2 against microbatches=1 from the same state:
+# grad_norm within a relative 1e-2 (bf16 gradients summed in another
+# grouping), and the updated masters within a mean |difference| of 0.1
+# lr (AdamW's first step moves an element by about lr * sign(g), so this
+# is 5 % of the elements flipping sign; only elements with |g| near the
+# bf16 rounding of g can).  A planted fault (the second microbatch
+# dropped: a step on the first half of the batch) must break a limit.
+MB_GNORM_RTOL = 1e-2
+MB_UPDATE_TOL = 0.1
+BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
+# the restart path: SmolLM-360M at full width through launch/train.py,
+# uninterrupted, failing at step 45 (checkpoints every 36 steps), and with
+# int8 gradient compression.  From random weights on SyntheticTokens
+# (uniform over 49,152 tokens) its loss falls slowly, against a spread of
+# a few 1e-2 from step to step: at a peak lr of 3e-4 or more it rose for
+# stretches before it fell, at 1e-4 it fell steadily.  So the runs take
+# 1e-4 and 60 steps of 4096 tokens, and the check compares the means of
+# the first and the last RESTART_LOSS_WINDOW steps.
+RESTART_ARCH = "smollm-360m"
+RESTART_ARGS = ("--steps", "60", "--batch", "8", "--seq", "512",
+                "--lr", "1e-4", "--log-every", "1", "--seed", "0",
+                "--deterministic")
+RESTART_FAIL_AT, RESTART_CKPT_EVERY = 45, 36
+RESTART_LOSS_WINDOW = 5
+
+
+def masked_batch(data, step, gen_seed):
+    """``data``'s batch at ``step`` on the card, with a seeded
+    TRAIN_MASK_FRACTION of its labels set to -1."""
+    import numpy as np
+    import torch
+    b = data.batch_at(step)
+    rng = np.random.default_rng((gen_seed, step))
+    b["labels"][rng.random(b["labels"].shape) < TRAIN_MASK_FRACTION] = -1
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def ce_stats(logits, batch, chunk=512):
+    """Mean next-token CE from float32 ``logits`` (sums in float64): the
+    sound version and the planted faults ``mask ignored`` (every
+    position counts, -1 read as token 0) and ``labels one late`` (the
+    target at i is the label of i - 1, the input token itself)."""
+    import torch
+    labels, tokens = batch["labels"].long(), batch["tokens"].long()
+    sums = {"sound": 0.0, "mask ignored": 0.0, "labels one late": 0.0}
+    counts = dict.fromkeys(sums, 0)
+    for j in range(0, logits.shape[1], chunk):
+        lg = logits[:, j:j + chunk]
+        lab, tok = labels[:, j:j + chunk], tokens[:, j:j + chunk]
+        logz = torch.logsumexp(lg, dim=-1)
+
+        def ce(target):
+            return logz - lg.gather(-1, target.clamp(min=0)[..., None])[..., 0]
+        valid, sound = lab >= 0, ce(lab)
+        for name, vals, mask in (
+                ("sound", sound, valid),
+                ("mask ignored", sound, torch.ones_like(valid)),
+                ("labels one late", ce(tok), valid)):
+            sums[name] += float(torch.where(mask, vals, 0.0).double().sum())
+            counts[name] += int(mask.sum())
+    return {k: sums[k] / max(counts[k], 1) for k in sums}
+
+
+def _host_copy(tree):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def master_distance(master, host_master, lr):
+    """Mean and max |master - host_master| / lr over every element."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    tot, n, top = 0.0, 0, 0.0
+    for a, b in zip(tree_leaves(master), tree_leaves(host_master)):
+        d = (a - b.to(a.device)).abs_().div_(lr)
+        tot += float(d.double().sum())
+        n += d.numel()
+        top = max(top, float(d.max()))
+        del d
+    torch.cuda.empty_cache()
+    return tot / n, top
+
+
+def profile_step(step):
+    """One more step under ``torch.profiler``: its wall (host clock), the
+    CUDA kernels' summed device time and the share of the wall they
+    leave idle (one stream, so the kernels do not overlap), and the ten
+    kernels with the most device time.  "not measured" where the trace
+    holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        return {"profiled_step_ms": wall * 1e3,
+                "device_busy_ms": "not measured"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"profiled_step_ms": wall * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90],
+                             "ms": e.self_device_time_total / 1e3,
+                             "share": e.self_device_time_total / busy_us,
+                             "calls": e.count} for e in top]}
+
+
+def train_phase(card):
+    """Gemma-2 2B training at full width (bf16 params, float32 master,
+    remat, chunked attention): 4 steps timed, step 0's loss against the
+    float32 CE of ``forward()``, and microbatches=2 against 1."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.utils.analytic import cost_cell
+    from repro_torch.utils.tree import param_bytes
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    if not (cfg.dtype == "bfloat16" and cfg.remat
+            and cfg.attn_impl == "chunked" and cfg.n_layers == 26):
+        fail(f"train: unexpected config {cfg}")
+    # launch/train.py's optimizer for --steps 4 --lr TRAIN_LR (no warmup)
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR,
+                          warmup_steps=min(50, TRAIN_STEPS // 5),
+                          total_steps=TRAIN_STEPS)
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                           seed=TRAIN_SEED)
+    batches = [masked_batch(data, i, TRAIN_SEED) for i in range(TRAIN_STEPS)]
+
+    def fresh_state():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(TRAIN_SEED)
+        model = DenseLM(cfg, device="cuda", generator=gen)
+        state = init_train_state(model)
+        torch.cuda.synchronize()
+        return model, state
+
+    t0 = time.perf_counter()
+    model, state = fresh_state()
+    log(f"train: {cfg.name} state built in {time.perf_counter() - t0:.1f} s: "
+        f"{param_bytes(state.params) / 1e9:.2f} GB bf16 params, "
+        f"{param_bytes(state.opt) / 1e9:.2f} GB float32 master, m and v")
+    # the oracle before step 0 updates the state in place
+    ce_bf16 = ce_stats(model.forward(batches[0]), batches[0])
+    f32 = DenseLM(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+                  params=state.opt["master"])
+    ce_f32 = ce_stats(f32.forward(batches[0]), batches[0])["sound"]
+    del f32
+    torch.cuda.empty_cache()
+
+    # the path: 4 steps; every count 0 just before, read just after
+    step_fn = make_train_step(model, opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, metrics = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if i == 0:
+            master1 = _host_copy(state.opt["master"])
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["flash_attention"] != 0 or sum(counts.values()):
+        fail(f"train: the train steps launched {counts}")
+    profile = profile_step(lambda: step_fn(state, batches[0]))
+    for i, m in enumerate(metrics):
+        if not all(map(math.isfinite, (m["loss"], m["grad_norm"]))):
+            fail(f"train: step {i} is not finite: {m}")
+    del model, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loss0 = metrics[0]["loss"]
+    noise = abs(ce_bf16["sound"] - ce_f32)
+    limit = TRAIN_NOISE_FACTOR * noise
+    loss_check = {"loss0": loss0, "ce_forward_bf16": ce_bf16["sound"],
+                  "ce_forward_f32_model": ce_f32, "noise": noise,
+                  "limit": limit,
+                  "err": abs(loss0 - ce_bf16["sound"]),
+                  "faults": {k: abs(v - loss0) for k, v in ce_bf16.items()
+                             if k != "sound"}}
+    loss_check["err_over_noise"] = loss_check["err"] / noise
+    if not loss_check["err"] <= limit:
+        fail(f"train: step 0's loss is off the forward CE: {loss_check}")
+    for name, dist in loss_check["faults"].items():
+        if not dist > limit:
+            fail(f"train: the loss check cannot see a planted fault "
+                 f"({name}): {loss_check}")
+
+    # microbatches=2 (and the planted fault, half the batch at mb=1) from
+    # the same state as step 0
+    mb = {"grad_norm_mb1": metrics[0]["grad_norm"]}
+    for name, micro, batch in (
+            ("mb2", 2, batches[0]),
+            ("fault: second microbatch dropped", 1,
+             {k: v[:TRAIN_BATCH // 2] for k, v in batches[0].items()})):
+        model, state = fresh_state()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = make_train_step(model, opt_cfg, microbatches=micro)(
+            state, batch)
+        step_peak = torch.cuda.max_memory_allocated()
+        mean_d, max_d = master_distance(state.opt["master"], master1,
+                                        float(m["lr"]))
+        rel = abs(float(m["grad_norm"]) - mb["grad_norm_mb1"]) \
+            / mb["grad_norm_mb1"]
+        mb[name] = {"grad_norm": float(m["grad_norm"]),
+                    "grad_norm_rel_diff": rel,
+                    "master_mean_abs_diff_over_lr": mean_d,
+                    "master_max_abs_diff_over_lr": max_d,
+                    "max_memory_allocated_gb": step_peak / 1e9,
+                    "rejected": not (rel <= MB_GNORM_RTOL
+                                     and mean_d <= MB_UPDATE_TOL)}
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    del master1
+    if mb["mb2"]["rejected"]:
+        fail(f"train: microbatches=2 disagrees with 1: {mb}")
+    if not mb["fault: second microbatch dropped"]["rejected"]:
+        fail(f"train: the microbatch limits cannot see a planted fault: {mb}")
+
+    step_s = statistics.median(walls[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    cost = cost_cell(cfg, ShapeSpec("train_4k", "train", TRAIN_SEQ,
+                                    TRAIN_BATCH), {"data": 1})
+    row = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "card": card, "step_ms": [w * 1e3 for w in walls],
+           "step_ms_median_2_4": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "max_memory_allocated_gb": peak / 1e9,
+           "analytic_flops_per_step": cost.flops_hlo_equiv,
+           "analytic_flops_ideal_per_step": cost.flops_ideal,
+           "model_tflops_per_s": cost.flops_hlo_equiv / step_s / 1e12,
+           "mfu": cost.flops_hlo_equiv / step_s / BF16_PEAK_FLOPS,
+           "mfu_ideal": cost.flops_ideal / step_s / BF16_PEAK_FLOPS,
+           "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "lr": [m["lr"] for m in metrics], "launches": counts,
+           "profile": profile,
+           "loss_check": loss_check, "microbatches": mb}
+    log("train " + json.dumps(row))
+    log(f"train: phase 8(a) took {time.perf_counter() - t_phase:.1f} s")
+    return counts, row
+
+
+def _train_cli(root, *extra):
+    """``python -m repro_torch.launch.train`` for RESTART_ARCH on the card
+    with checkpoints under ``root``, deterministic kernels."""
+    import os
+    # three such processes share the host's cores with this one
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="2")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         RESTART_ARCH, *RESTART_ARGS, "--ckpt-dir", str(root), *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _final_files(root, step):
+    d = Path(root) / f"step_{step:08d}"
+    return {f.name: f.read_bytes() for f in sorted(d.glob("*.npy"))}
+
+
+def restart_phase(card):
+    """Three launch/train.py processes at once (SmolLM-360M at full
+    width): uninterrupted, failing at step RESTART_FAIL_AT, and with int8
+    compression.  The interrupted run's final state files equal the
+    uninterrupted run's byte for byte, and so does every loss it prints;
+    every run's loss falls (the mean of its last RESTART_LOSS_WINDOW
+    steps below that of its first)."""
+    import shutil
+    t0 = time.perf_counter()
+    base = ROOT / "build" / "train_restart"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)          # the heartbeat files live here
+    steps = int(RESTART_ARGS[RESTART_ARGS.index("--steps") + 1])
+    runs = {"uninterrupted": ("--ckpt-every", str(RESTART_CKPT_EVERY)),
+            "failed and restarted": ("--ckpt-every", str(RESTART_CKPT_EVERY),
+                                     "--simulate-failure-at",
+                                     str(RESTART_FAIL_AT)),
+            "int8": ("--ckpt-every", str(steps), "--compression", "int8")}
+    procs = {}
+    try:
+        for k, a in runs.items():
+            procs[k] = _train_cli(base / k.replace(" ", "_"), *a)
+        outs = {}
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=900)
+            if p.returncode != 0:
+                fail(f"restart: the {k} run exited {p.returncode}: "
+                     f"{err[-3000:]}")
+            outs[k] = out
+        rows = {}
+        for k, out in outs.items():
+            lines = out.splitlines()
+            # step -> loss; a step run again after the restart overwrites
+            by_step = {int(ln.split()[1]): float(ln.split()[3])
+                       for ln in lines if ln.startswith("step ")}
+            losses = [by_step[i] for i in sorted(by_step)]
+            w = RESTART_LOSS_WINDOW
+            rows[k] = {"losses": losses,
+                       "first_mean": statistics.mean(losses[:w]),
+                       "last_mean": statistics.mean(losses[-w:]),
+                       "restores": [ln for ln in lines
+                                    if ln.startswith("[restore]")],
+                       "done": next((ln for ln in lines
+                                     if ln.startswith("[done]")), None)}
+            if len(losses) != steps or \
+                    not rows[k]["last_mean"] < rows[k]["first_mean"]:
+                fail(f"restart: the {k} run's loss did not fall: {rows[k]}")
+        rec = rows["failed and restarted"]
+        want = f"[restore] resumed from step {RESTART_CKPT_EVERY}"
+        if rec["restores"] != [want] or "restarts=1" not in (rec["done"]
+                                                             or ""):
+            fail(f"restart: the failed run did not restart from step "
+                 f"{RESTART_CKPT_EVERY}: {rec}")
+        if rec["losses"] != rows["uninterrupted"]["losses"]:
+            fail("restart: the restarted run printed other losses than the "
+                 "uninterrupted run")
+        a = _final_files(base / "uninterrupted", steps)
+        b = _final_files(base / "failed_and_restarted", steps)
+        params = [f for f in a if f.startswith("[<flat index 0>]")]
+        row = {"arch": RESTART_ARCH, "args": " ".join(RESTART_ARGS),
+               "card": card, "runs": rows, "state_files": len(a),
+               "state_bytes": sum(len(v) for v in a.values()),
+               "param_files": len(params),
+               "params_bit_equal": bool(params) and all(
+                   a[f] == b.get(f) for f in params),
+               "state_bit_equal": a.keys() == b.keys() and all(
+                   a[f] == b[f] for f in a),
+               "wall_s": time.perf_counter() - t0}
+        log("restart " + json.dumps(row))
+        if not (row["params_bit_equal"] and row["state_bit_equal"]):
+            fail("restart: the restarted run's final state differs from the "
+                 "uninterrupted run's")
+        return row
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(base, ignore_errors=True)
+
+
 # ------------------------------------------------------------------ main
 
 def build_all():
@@ -2235,6 +2649,15 @@ def main() -> int:
 
     # 6. LM serving (the counts are reset inside, just before the path)
     paths[SERVE_PATH], serve_rows = serve_phase()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 6 done")
+
+    # 8. LM training (the counts are reset inside, just before the path),
+    # then the restart path in processes of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[TRAIN_PATH], train_row = train_phase(card)
+    restart_row = restart_phase(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 8 done")
     must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
                 ("pregel_superstep", "ell_intersect"),
             FORCED_BATCH_PATH: ("pregel_superstep_batched",),
@@ -2282,6 +2705,7 @@ def main() -> int:
         "engine": engine_rows, "superstep_breakdown": breakdown,
         "batch": batch_rows, "platform": platform_rows,
         "spmv": spmv_rows, "slice": slice_rows, "serve": serve_rows,
+        "train": train_row, "restart": restart_row,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,9 +1,10 @@
-"""Transformer building blocks of the port's serving path (functions over
+"""Transformer building blocks of the port's LM (functions over
 parameter dicts), mirroring the reference's ``models/layers.py``.
 
 Conventions
 -----------
-* Parameters are nested dicts of tensors, float32 masters; per-layer
+* Parameters are nested dicts of tensors (float32 masters for serving;
+  a train state's bf16 or float32 params for training); per-layer
   parameters are stacked on a leading ``L`` axis, and the model slices
   layer ``i`` out of each (a Python loop over layers, no scan).  Every
   matrix is ``x @ w``-shaped (``wq`` is ``[d_model, q_dim]``) and is cast
@@ -182,8 +183,11 @@ def attention_output(q, k, v, qpos, kpos, impl: str, causal=True, window=0,
 
     ``flash`` assumes positions ``0..S-1`` (the prefill's) and has no
     prefix-LM zone: ``prefix > 0`` raises (the reference drops it
-    silently).  ``use_kernels=False`` runs the flash kernel's plain
-    version on any device."""
+    silently).  It is forward only: under autograd with an input that
+    requires grad it raises, since the kernel's output carries no
+    gradient (the reference cannot differentiate it either).
+    ``use_kernels=False`` runs the flash kernel's plain version on any
+    device."""
     if impl == "ref":
         return attn_ref(q, k, v, qpos, kpos, causal, window, softcap, prefix)
     if impl == "chunked":
@@ -193,6 +197,12 @@ def attention_output(q, k, v, qpos, kpos, impl: str, causal=True, window=0,
         if prefix:
             raise ValueError("attention_output: the flash kernel has no "
                              f"prefix-LM zone (prefix={prefix})")
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise RuntimeError(
+                "attention_output: the flash kernel is forward only (no "
+                "gradient reaches q, k or v); train with "
+                "attn_impl='chunked'")
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal,
                             window=int(window), softcap=float(softcap),

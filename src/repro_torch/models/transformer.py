@@ -1,17 +1,23 @@
-"""Dense decoder-only LM (llama / mistral / gemma2 family), the serving
-half of the reference's ``models/transformer.py``:
+"""Dense decoder-only LM (llama / mistral / gemma2 family), the
+reference's ``models/transformer.py``:
 
     DenseLM(cfg, device, generator)            parameters at the reference's
                                                shapes and scales
+    init(generator) -> params                  a fresh float32 tree
     forward(batch) -> logits                   teacher-forced, all positions
+    loss(batch, vocab_chunk, params) -> (loss, metrics)
+                                               chunked next-token CE, with
+                                               autograd (the training path)
     init_cache(batch, cache_len) -> cache
     prefill(batch, cache_len) -> (last_logits, cache)
     decode_step(tokens, cache, index) -> (logits, cache)
 
 ``params_from_numpy(cfg, tree)`` carries the reference's ``DenseLM.init``
 pytree (as numpy arrays) over, so both packages run the same weights.
-Layers run in a Python loop, each with its window as an int.  ``loss``,
-the shardings and ``input_specs`` belong to the training slice.
+Layers run in a Python loop, each with its window as an int; under
+``cfg.remat`` the training path checkpoints each layer, as the reference
+does.  ``forward``, ``prefill`` and ``decode_step`` compute no gradients.
+The shardings and ``input_specs`` belong to the mesh work (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -27,11 +34,10 @@ from repro_torch.models import layers as L
 
 
 def _as_parameters(tree) -> nn.ParameterDict:
-    """Nested dict of tensors -> nested ``ParameterDict`` (frozen: the
-    serving path computes no gradients)."""
+    """Nested dict of tensors -> nested ``ParameterDict`` of trainable
+    parameters sharing the tensors' storage."""
     return nn.ParameterDict({
-        k: _as_parameters(v) if isinstance(v, dict)
-        else nn.Parameter(v, requires_grad=False)
+        k: _as_parameters(v) if isinstance(v, dict) else nn.Parameter(v)
         for k, v in tree.items()})
 
 
@@ -90,10 +96,11 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
 class DenseLM(nn.Module):
     """The dense LM on one device.
 
-    ``params``: a tree from ``params_from_numpy``; without it the
-    parameters are drawn from ``generator`` (default: seed 0 on the
-    device).  ``use_kernels=False`` runs the flash kernel's plain version
-    wherever the model lives (parity runs on the card)."""
+    ``params``: a tree from ``params_from_numpy`` (or a train state's
+    params); without it the parameters are drawn from ``generator``
+    (default: seed 0 on the device).  The model's parameters share the
+    tree's tensors.  ``use_kernels=False`` runs the flash kernel's plain
+    version wherever the model lives (parity runs on the card)."""
 
     family = "dense"
 
@@ -114,12 +121,27 @@ class DenseLM(nn.Module):
         _check_tree(cfg, params, "DenseLM")
         self.params = _as_parameters(params)
 
+    def init(self, generator: torch.Generator) -> dict:
+        """A fresh float32 parameter tree on the model's device, drawn from
+        ``generator`` (the reference's ``init(key)``)."""
+        return init_params(self.cfg, self.device, generator)
+
     # ------------------------------------------------------------ block
-    def _layer(self, i: int) -> dict:
-        """Layer ``i``'s parameters (views into the stacked tensors)."""
-        return {k: ({kk: vv[i] for kk, vv in v.items()}
-                    if isinstance(v, nn.ParameterDict) else v[i])
-                for k, v in self.params["layers"].items()}
+    def _layers(self, params) -> list[dict]:
+        """Each layer's parameters: views into the stacked tensors, one
+        ``unbind`` a tensor.  ``params["layers"]`` may also be the list
+        of per-layer dicts itself (the train step passes each layer's
+        slices as leaves of their own)."""
+        if isinstance(params["layers"], (list, tuple)):
+            return list(params["layers"])
+
+        def split(t):
+            if isinstance(t, (dict, nn.ParameterDict)):
+                parts = {k: split(v) for k, v in t.items()}
+                return [{k: v[i] for k, v in parts.items()}
+                        for i in range(self.cfg.n_layers)]
+            return t.unbind(0)
+        return split(params["layers"])
 
     def _block_train(self, p_l, window: int, x, qpos):
         cfg = self.cfg
@@ -165,20 +187,74 @@ class DenseLM(nn.Module):
         return x + m
 
     # ---------------------------------------------------------- forward
-    def _embed_inputs(self, batch):
+    def _embed_inputs(self, params, batch):
         tokens = batch["tokens"].to(self.device)
-        x = L.embed_tokens(self.params, tokens, self.cfg, self.dtype)
+        x = L.embed_tokens(params, tokens, self.cfg, self.dtype)
         qpos = torch.arange(tokens.shape[1], dtype=torch.int32,
                             device=self.device)
         return x, qpos
 
+    def _run_layers(self, params, x, qpos):
+        """The layer stack; under autograd and ``cfg.remat`` each layer is
+        checkpointed (only its input is kept; the reference's
+        ``nothing_saveable``)."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for p_l, w in zip(self._layers(params), self.windows):
+            def block(p_l, x, w=w):
+                return self._block_train(p_l, w, x, qpos)[0]
+            x = (checkpoint(block, p_l, x, use_reentrant=False,
+                            preserve_rng_state=False)
+                 if remat else block(p_l, x))
+        return x
+
     @torch.no_grad()
     def forward(self, batch):
         """Logits ``[B, S, padded_vocab]`` (float32) at every position."""
-        x, qpos = self._embed_inputs(batch)
-        for i, w in enumerate(self.windows):
-            x, _ = self._block_train(self._layer(i), w, x, qpos)
+        x, qpos = self._embed_inputs(self.params, batch)
+        x = self._run_layers(self.params, x, qpos)
         return L.unembed(self.params, x, self.cfg)
+
+    # ------------------------------------------------------------- loss
+    def loss(self, batch, vocab_chunk: int = 8, params=None):
+        """Next-token cross-entropy over ``batch["labels"]`` ([B, S], -1 =
+        masked), with autograd: ``(loss, {"loss", "tokens"})``, the mean
+        over valid tokens (float32) and their count (int32).
+
+        ``params``: the tree to run on (a train state's), default the
+        model's own.  As in the reference, the sequence is cut into
+        ``vocab_chunk`` chunks (one when S does not divide) and each
+        chunk's float32 logits are computed inside a checkpoint, so only
+        one chunk's ``[B, S / vocab_chunk, V]`` logits are ever live."""
+        cfg = self.cfg
+        p = self.params if params is None else params
+        x, qpos = self._embed_inputs(p, batch)
+        x = self._run_layers(p, x, qpos)
+        targets = batch["labels"].to(self.device)
+        s = targets.shape[1]
+        nc = vocab_chunk if s % vocab_chunk == 0 else 1
+        n = s // nc
+        head = {k: p[k] for k in ("embedding", "final_norm", "lm_head")
+                if k in p}
+
+        def chunk_loss(head, xx, tt):
+            logits = L.unembed(head, xx, cfg)             # [b, n, V] f32
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                tt.clamp(min=0).long()[..., None])[..., 0]
+            valid = tt >= 0
+            ce = torch.where(valid, logz - gold, 0.0)
+            return ce.sum(), valid.sum(dtype=torch.int32)
+
+        tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        cnt = torch.zeros((), dtype=torch.int32, device=self.device)
+        for j in range(nc):
+            ce, valid = checkpoint(chunk_loss, head, x[:, j * n:(j + 1) * n],
+                                   targets[:, j * n:(j + 1) * n],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+            tot, cnt = tot + ce, cnt + valid
+        loss = tot / torch.clamp(cnt, min=1)
+        return loss, {"loss": loss, "tokens": cnt}
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch_size: int, cache_len: int) -> dict:
@@ -201,9 +277,10 @@ class DenseLM(nn.Module):
             raise ValueError(f"prefill: cache_len {cache_len} < prompt "
                              f"length {s}")
         cache = self.init_cache(b, cache_len)
-        x, qpos = self._embed_inputs(batch)
-        for i, w in enumerate(self.windows):
-            x, (k, v) = self._block_train(self._layer(i), w, x, qpos)
+        x, qpos = self._embed_inputs(self.params, batch)
+        for i, (p_l, w) in enumerate(zip(self._layers(self.params),
+                                         self.windows)):
+            x, (k, v) = self._block_train(p_l, w, x, qpos)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         return L.unembed(self.params, x[:, -1:, :], self.cfg), cache
@@ -220,7 +297,8 @@ class DenseLM(nn.Module):
                              f"cache (length {cache['k'].shape[2]})")
         x = L.embed_tokens(self.params, tokens.to(self.device), self.cfg,
                            self.dtype)
-        for i, w in enumerate(self.windows):
-            x = self._block_decode(self._layer(i), w, x, cache["k"][i],
+        for i, (p_l, w) in enumerate(zip(self._layers(self.params),
+                                         self.windows)):
+            x = self._block_decode(p_l, w, x, cache["k"][i],
                                    cache["v"][i], index)
         return L.unembed(self.params, x, self.cfg), cache

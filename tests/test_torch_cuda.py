@@ -855,3 +855,80 @@ def _tree(params, device=None):
     return {k: _tree(v, device) if isinstance(v, torch.nn.ParameterDict)
             else (v.detach() if device is None else v.detach().to(device))
             for k, v in params.items()}
+
+
+# --------------------------------------------------------------- training
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "smollm-360m"])
+def test_train_step_on_the_card_matches_the_cpu(arch, remat):
+    """One float32 AdamW step of a reduced model from the same weights
+    and masked batch on ``cuda`` and on the CPU.  Loss, gradient norm
+    and lr within rtol 1e-5 (summation order); ``m`` within rtol 1e-4 and
+    1e-5 of the leaf's largest magnitude (the gradients' order of error).
+    Parameters: the first step moves each by about lr * sign(g), so an
+    element whose gradient lies within that tolerance of zero may differ
+    by up to 2 lr; every other one within lr * 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models.transformer import DenseLM, init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    from repro_torch.utils.tree import flatten_with_paths
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), remat=remat)
+    params = init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    lab = np.roll(tok, -1, axis=1)
+    lab[:, -5:] = -1
+    batch = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)}
+    lr = 1e-3
+    opt = AdamWConfig(peak_lr=lr, warmup_steps=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = DenseLM(cfg, device=dev, params=_moved(params, dev))
+        state, metrics = make_train_step(model, opt)(
+            init_train_state(model),
+            {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = state, {k: float(v) for k, v in metrics.items()}
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm", "lr"):
+        assert gm[k] == pytest.approx(cm[k], rel=1e-5), k
+    assert gm["tokens"] == cm["tokens"]
+    m_cpu = dict(flatten_with_paths(cs.opt["m"]))
+    for name, m in flatten_with_paths(gs.opt["m"]):
+        torch.testing.assert_close(m.cpu(), m_cpu[name], rtol=1e-4,
+                                   atol=1e-5 * float(m_cpu[name].abs().max()))
+    for (name, p), (_, q) in zip(flatten_with_paths(gs.params),
+                                 flatten_with_paths(cs.params)):
+        g = m_cpu[name].abs() / 0.1
+        loose = g <= max(1e-5, 1e-4 * float(g.max()))
+        diff = (p.cpu() - q).abs()
+        assert bool((diff[~loose] <= lr * 1e-3 + 1e-7 * q.abs()[~loose])
+                    .all()), name
+        assert bool((diff[loose] <= 2 * lr * 1.01).all()), name
+
+
+def _moved(tree, device):
+    return {k: _moved(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def test_flash_attention_raises_under_autograd_on_the_card():
+    """The kernel's output carries no gradient: with grad enabled and an
+    input that requires grad, ``attention_output(impl="flash")`` raises
+    before launching; under ``no_grad`` it launches once."""
+    from repro_torch.models import layers as TL
+    q = torch.randn(1, 64, 4, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    pos = torch.arange(64, device="cuda")
+    before = fops.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="forward only"):
+        TL.attention_output(q, k.requires_grad_(), v, pos, pos, "flash")
+    assert fops.KERNEL_LAUNCHES == before
+    with torch.no_grad():
+        TL.attention_output(q, k, v, pos, pos, "flash")
+    assert fops.KERNEL_LAUNCHES == before + 1
