@@ -2,14 +2,13 @@
 
 A copy of the reference's ``configs/base.py`` (the port imports nothing of
 the JAX package).  ``ModelConfig`` is a frozen dataclass; one file per
-architecture lives next to this module, and ``get_config(name)`` resolves
-them.  The port carries the dense family's files (``gemma2_2b``,
-``smollm_360m``, ``granite_8b``, ``mistral_large_123b``).
-``reduced_config`` shrinks an architecture to a CPU-testable size while
-keeping its structure (family, GQA ratio, local/global pattern, ...).
-The execution fields ``remat``, ``scan_layers``, ``fsdp`` and the
-``"ring"`` attention are the reference's; the port's serving path reads
-none of them.
+architecture lives next to this module, field for field the reference's,
+and ``get_config(name)`` resolves them (all ten architectures, six
+families).  ``reduced_config`` shrinks an architecture to a CPU-testable
+size while keeping its structure (family, GQA ratio, local/global
+pattern, ...).  The execution fields ``scan_layers``, ``fsdp`` and the
+``"ring"`` attention are the reference's and the port reads none of
+them; ``remat`` is read by the training path only.
 """
 from __future__ import annotations
 
@@ -154,25 +153,10 @@ def list_archs() -> list[str]:
     return list(ARCHS)
 
 
-#: Architectures of families the port has no model for yet, with the
-#: family: ``get_config`` raises for them (ROADMAP.md §1, "Next": the other
-#: LM families).
-UNPORTED = {
-    "hymba_1p5b": "hybrid", "olmoe_1b_7b": "moe", "dbrx_132b": "moe",
-    "xlstm_125m": "ssm", "whisper_large_v3": "encdec",
-    "paligemma_3b": "vlm",
-}
-
-
 def get_config(name: str) -> ModelConfig:
     """The config of ``name`` (an alias such as ``gemma2-2b`` or the module
-    name).  The port carries the dense family's configs; an architecture
-    of another family raises ``NotImplementedError``."""
+    name)."""
     mod_name = _ALIASES.get(name, name)
-    if mod_name in UNPORTED:
-        raise NotImplementedError(
-            f"{name}: the {UNPORTED[mod_name]!r} family is not ported yet "
-            "(ROADMAP.md §1, Next: the other LM families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 

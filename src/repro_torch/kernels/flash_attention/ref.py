@@ -45,6 +45,10 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     b, hq, s, d = q.shape
     hkv = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
+        raise ValueError(f"mha_plain: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         "(self-attention: one length for q, k and v)")
     if hq % hkv:
         raise ValueError(f"mha_plain: Hq={hq} is not a multiple of "
                          f"Hkv={hkv}")

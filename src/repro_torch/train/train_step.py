@@ -80,10 +80,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
                     compression: Optional[CompressionConfig] = None,
                     dp_spec=None, grad_spec=None):
     """``train_step(state, batch)``: ``batch`` holds ``tokens`` and
-    ``labels`` ([B, S] int tensors).  With ``microbatches > 1`` the
-    leading axis is split into that many equal parts, their gradients
-    are summed in float32 and averaged, and ``metrics`` holds the mean
-    ``loss`` only (as in the reference).  ``dp_spec`` / ``grad_spec``
+    ``labels`` ([B, S] int tensors) and whatever else the model's loss
+    reads (``audio_embeds``, ``patch_embeds``).  With ``microbatches >
+    1`` the leading axis is split into that many equal parts, their
+    gradients are summed in float32 and averaged, and ``metrics`` holds
+    the mean ``loss`` only (as in the reference).  ``dp_spec`` / ``grad_spec``
     are the reference's mesh arguments: a value other than ``None``
     raises ``NotImplementedError``."""
     _mesh_only(dp_spec=dp_spec, grad_spec=grad_spec)
@@ -99,14 +100,20 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
             t = p.detach().requires_grad_()
             pairs.append((t, buf))
             return t
-        tree = {k: tree_map(leaf, v, bufs[k]) for k, v in params.items()
-                if k != "layers"}
-        # each layer's slice of a stacked tensor is its own leaf, so its
-        # gradient goes straight into its slice of the buffer (no
-        # full-size [L, ...] gradient per layer, no stack of them)
-        tree["layers"] = [
-            tree_map(lambda p, buf: leaf(p[i], buf[i]), params["layers"],
-                     bufs["layers"]) for i in range(model.cfg.n_layers)]
+        # every stacked group the model names (``model.STACKS``: the
+        # layers, an encoder's layers, cross attention, xLSTM's pairs) is
+        # split by its own leading size, and each slice of a stacked
+        # tensor is its own leaf, so its gradient goes straight into its
+        # slice of the buffer (no full-size [L, ...] gradient per slice,
+        # no stack of them); the other entries are leaves as they are
+        tree = {}
+        for k, v in params.items():
+            if k in model.STACKS:
+                n = tree_leaves(v)[0].shape[0]
+                tree[k] = [tree_map(lambda p, buf, i=i: leaf(p[i], buf[i]),
+                                    v, bufs[k]) for i in range(n)]
+            else:
+                tree[k] = tree_map(leaf, v, bufs[k])
         for t, buf in pairs:
             t.register_post_accumulate_grad_hook(
                 lambda t, buf=buf: _drain(t, buf))

@@ -1,5 +1,5 @@
 """Closed-form per-chip cost model of one (arch x shape x mesh) cell, the
-reference's ``utils/analytic.py`` for the dense family.
+reference's ``utils/analytic.py``.
 
 The formulas count matmul FLOPs exactly and bytes to first order.  All
 returns are PER CHIP PER STEP:
@@ -12,10 +12,11 @@ returns are PER CHIP PER STEP:
   remat recompute factor on activation bytes.
 
 The reference's ``CellCost.terms`` defaults to a TPU chip's peak rates;
-the port's takes the chip's rates from the caller, with no default.  The
-other families' terms wait for their models (``configs/base.py``
-``get_config`` raises for them): ``cost_cell`` raises for any family but
-``dense``.
+the port's takes the chip's rates from the caller, with no default.
+``cost_cell`` is the reference's for every family, term for term: MoE
+expert, router and one-hot dispatch FLOPs (the reference's einsum form,
+not the port's gather) and its all-to-all bytes, the xLSTM and Mamba
+recurrences, the encoder and cross-attention terms, SSM decode state.
 """
 from __future__ import annotations
 
@@ -74,10 +75,6 @@ def _attn_seq_eff(cfg: ModelConfig, S: int) -> tuple[float, float]:
 def cost_cell(cfg: ModelConfig, shape: ShapeSpec, mesh_sizes: dict,
               dp_used: tuple = ("data",), microbatches: int = 1,
               attn_chunk: int = 1024) -> CellCost:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the cost model of the {cfg.family!r} family is "
-            "not ported yet (ROADMAP.md §1, the other LM families)")
     M = mesh_sizes.get("model", 1)
     Ddp = 1
     for ax in dp_used:
@@ -111,9 +108,57 @@ def cost_cell(cfg: ModelConfig, shape: ShapeSpec, mesh_sizes: dict,
         kv_len_full = kv_len_ideal = cache_len
     else:
         kv_len_full, kv_len_ideal = _attn_seq_eff(cfg, S)
-    fl["attn"] = mm * 4 * T * Hq * Dh * kv_len_full * L
-    fl_i["attn"] = mm * 4 * T * Hq * Dh * kv_len_ideal * L
-    fl["mlp"] = fl_i["mlp"] = mm * 6 * T * D * F * L
+    attn = mm * 4 * T * Hq * Dh * kv_len_full * L
+    attn_i = mm * 4 * T * Hq * Dh * kv_len_ideal * L
+    if cfg.family in ("ssm",):
+        attn = attn_i = 0.0
+    fl["attn"], fl_i["attn"] = attn, attn_i
+
+    if cfg.family == "moe":
+        slots = cfg.top_k * cfg.capacity_factor
+        experts = mm * 6 * T * slots * D * F * L
+        # blocked one-hot dispatch: per token 4*(E*C_b)*D with
+        # E*C_b = slots * gb  (see models/moe.py)
+        gb = min(1024, T)
+        dispatch = mm * 4 * T * slots * gb * D * L
+        router = mm * 2 * T * D * cfg.n_experts * L
+        fl["mlp"] = fl_i["mlp"] = experts + router
+        fl["moe_dispatch"] = fl_i["moe_dispatch"] = dispatch
+    elif cfg.family == "ssm":
+        di = cfg.ssm_expand * D
+        dh_i = di // max(Hq, 1)
+        mlstm = mm * (2 * T * D * 2 * di + 3 * 2 * T * di * di
+                      + 2 * T * di * D) * (L / 2)
+        mlstm_rec = 10 * T * di * dh_i * (L / 2) * (3 if train else 1)
+        slstm = mm * (2 * T * D * 4 * di + 2 * T * di * D) * (L / 2)
+        slstm_rec = 30 * T * di * (L / 2) * (3 if train else 1)
+        fl["mlp"] = fl_i["mlp"] = mlstm + slstm
+        fl["ssm"] = fl_i["ssm"] = mlstm_rec + slstm_rec
+    else:
+        mlp = mm * 6 * T * D * F * L
+        fl["mlp"] = fl_i["mlp"] = mlp
+        if cfg.family == "hybrid":
+            di = cfg.ssm_expand * D
+            n = cfg.ssm_state
+            r = max(1, D // 16)
+            ssm_proj = mm * (2 * T * D * 2 * di + 2 * T * di * D
+                             + 2 * T * di * (2 * n + r) + 2 * T * r * di) * L
+            ssm_scan = 10 * T * di * n * L * (3 if train else 1)
+            fl["ssm"] = fl_i["ssm"] = ssm_proj + ssm_scan
+
+    if cfg.family == "encdec" and not decode:
+        Te = B * cfg.encoder_seq
+        enc = mm * (2 * Te * D * Dh * (2 * Hq + 2 * Hkv)
+                    + 4 * Te * Hq * Dh * cfg.encoder_seq
+                    + 6 * Te * D * F) * cfg.n_encoder_layers
+        cross = mm * (2 * T * D * D + 4 * T * D * cfg.encoder_seq
+                      + 2 * Te * D * D * 2) * L
+        fl["encoder"] = fl_i["encoder"] = enc
+        fl["cross"] = fl_i["cross"] = cross
+    elif cfg.family == "encdec" and decode:
+        cross = mm * (2 * T * D * D + 4 * T * D * cfg.encoder_seq) * L
+        fl["cross"] = fl_i["cross"] = cross
+
     fl["vocab"] = fl_i["vocab"] = mm * 2 * T * D * V
 
     flops_per_chip = sum(fl.values()) / n_chips
@@ -131,14 +176,18 @@ def cost_cell(cfg: ModelConfig, shape: ShapeSpec, mesh_sizes: dict,
         by["weights"] = BF16 * n_params / M
     c_act = 16 * (1.7 if (train and cfg.remat) else 1.0)
     by["activations"] = c_act * T_loc * D * BF16 * L
-    if not decode:
+    if not decode and cfg.family != "ssm":
         # flash/chunked kv streaming: each q block re-reads K,V
         nq = max(1, S // max(attn_chunk, 1))
         by["attn_kv"] = 2 * B_loc * nq * S * Hkv * Dh * BF16 * L \
             * (3 if train else 1)
-    else:
+    if decode and cfg.family != "ssm":
         # decode reads the whole (Dh-sharded) cache every step
         by["kv_cache"] = 2 * L * B_loc * cache_len * Hkv * Dh * BF16 / M
+    if decode and cfg.family in ("ssm", "hybrid"):
+        di = cfg.ssm_expand * D
+        n = cfg.ssm_state if cfg.family == "hybrid" else di // 4
+        by["ssm_state"] = 2 * L * B_loc * di * max(n, 1) * F32 / M
     fl_bytes = sum(by.values())
 
     # ---------------- collective link-bytes per chip --------------------
@@ -154,6 +203,14 @@ def cost_cell(cfg: ModelConfig, shape: ShapeSpec, mesh_sizes: dict,
         if "pod" in mesh_sizes and "pod" not in dp_used:
             co["pod_grads"] = 2 * ring(mesh_sizes["pod"]) * F32 \
                 * n_params / (M * Ddp)
+    if cfg.family == "moe":
+        # the reference's assumption, kept for parity of the model: the
+        # all-to-all drives 4 links of its torus at once (ring
+        # collectives are charged at 1 link); no figure for NVLink yet
+        A2A_LINKS = 4.0
+        slots = cfg.top_k * cfg.capacity_factor
+        co["moe_a2a"] = (4 if train else 2) * slots * T_loc * D * BF16 \
+            * ring(M) * L / A2A_LINKS
 
     return CellCost(
         flops_hlo_equiv=flops_per_chip,

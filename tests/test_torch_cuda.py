@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the engines and platform on ``cuda:0`` against the same port on the CPU,
-and the dense LM's prefill and decode through the flash kernel.
+the dense LM's prefill and decode through the flash kernel, and every LM
+family's prefill, decode and train step on the card against the CPU.
 
 Every test needs a CUDA device and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the reference package, so
@@ -872,7 +873,8 @@ def test_train_step_on_the_card_matches_the_cpu(arch, remat):
     import dataclasses
 
     from repro_torch.configs.base import get_config, reduced_config
-    from repro_torch.models.transformer import DenseLM, init_params
+    from repro_torch.models.registry import init_params
+    from repro_torch.models.transformer import DenseLM
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
@@ -932,3 +934,141 @@ def test_flash_attention_raises_under_autograd_on_the_card():
     with torch.no_grad():
         TL.attention_output(q, k, v, pos, pos, "flash")
     assert fops.KERNEL_LAUNCHES == before + 1
+
+
+# ------------------------------------------------- the other LM families
+
+FAMILY_ARCHS = ["olmoe_1b_7b", "dbrx_132b", "hymba_1p5b", "xlstm_125m",
+                "whisper_large_v3", "paligemma_3b"]
+
+
+def _family_batch(cfg, seed, b=2, s=40):
+    """Tokens, next-token labels (the last five masked) and the stub
+    frontend's embeddings, on the CPU."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    lab = np.roll(tok, -1, axis=1)
+    lab[:, -5:] = -1
+    batch = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)}
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.prefix_len, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_and_decode_on_the_card_match_the_cpu(arch):
+    """Reduced config, float32, the serve CLI's attention (flash for MoE
+    and Hymba: the kernel on the card, its plain version on the CPU, one
+    launch a layer in the prefill and none in a decode step): prefill
+    logits, every cache entry and three decode steps within 1e-4
+    (summation order; Hymba S = 40 past its window of 16)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model, init_params
+    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(cfg, attn_impl=serve.default_attn_impl(cfg))
+    params = init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+    batch = _family_batch(cfg, 1)
+    del batch["labels"]
+    cache_len = 44 + cfg.prefix_len
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev, params=_moved(params, dev))
+        before = fops.KERNEL_LAUNCHES
+        logits, cache = model.prefill({k: v.to(dev) for k, v in
+                                       batch.items()}, cache_len=cache_len)
+        torch.cuda.synchronize()
+        launched = fops.KERNEL_LAUNCHES - before
+        steps = []
+        tok = torch.argmax(logits[:, -1], -1)[:, None].int()
+        for i in range(3):
+            lg, cache = model.decode_step(tok, cache,
+                                          40 + cfg.prefix_len + i)
+            steps.append(lg)
+            tok = torch.argmax(lg[:, -1], -1)[:, None].int()
+        torch.cuda.synchronize()
+        want = (cfg.n_layers if dev == "cuda" and cfg.attn_impl == "flash"
+                else 0)
+        assert launched == want == fops.KERNEL_LAUNCHES - before
+        out[dev] = logits, cache, steps
+    (cl, cc, cs), (gl, gc, gs) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    assert sorted(gc) == sorted(cc)
+    for name in cc:
+        torch.testing.assert_close(gc[name].cpu(), cc[name], rtol=1e-4,
+                                   atol=1e-4)
+    for a, b in zip(gs, cs):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_the_card_matches_the_cpu(arch):
+    """One float32 AdamW step of each reduced family on ``cuda`` and on
+    the CPU from the same weights and batch, through CUDA autograd: the
+    MoE gather / scatter, the doubling scan, the xLSTM time loops, the
+    encoder and cross attention.  Loss, gradient norm and lr within rtol
+    1e-5 (a relative 1e-4 for MoE's ``aux``, a sum over routing
+    decisions); ``m`` within rtol 1e-4 and 1e-5 of the leaf's largest
+    magnitude; parameters within lr * 1e-3, or 2 lr where the gradient
+    is within that tolerance of zero (see
+    ``test_train_step_on_the_card_matches_the_cpu``)."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models.registry import build_model, init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    from repro_torch.utils.tree import flatten_with_paths
+    cfg = reduced_config(get_config(arch))
+    params = init_params(cfg, "cpu", torch.Generator().manual_seed(0))
+    batch = _family_batch(cfg, 2, b=4, s=32)
+    lr = 1e-3
+    opt = AdamWConfig(peak_lr=lr, warmup_steps=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev, params=_moved(params, dev))
+        state, metrics = make_train_step(model, opt)(
+            init_train_state(model),
+            {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = state, {k: float(v) for k, v in metrics.items()}
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    assert set(gm) == set(cm) and gm["tokens"] == cm["tokens"]
+    for k in set(cm) - {"tokens"}:
+        assert gm[k] == pytest.approx(cm[k], rel=1e-4 if k == "aux"
+                                      else 1e-5), k
+    m_cpu = dict(flatten_with_paths(cs.opt["m"]))
+    for name, m in flatten_with_paths(gs.opt["m"]):
+        torch.testing.assert_close(m.cpu(), m_cpu[name], rtol=1e-4,
+                                   atol=1e-5 * float(m_cpu[name].abs().max()))
+    for (name, p), (_, q) in zip(flatten_with_paths(gs.params),
+                                 flatten_with_paths(cs.params)):
+        g = m_cpu[name].abs() / 0.1
+        loose = g <= max(1e-5, 1e-4 * float(g.max()))
+        diff = (p.cpu() - q).abs()
+        assert bool((diff[~loose] <= lr * 1e-3 + 1e-7 * q.abs()[~loose])
+                    .all()), name
+        assert bool((diff[loose] <= 2 * lr * 1.01).all()), name
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", [
+    (2, 16, 16, 2048, 128, dict(causal=True)),                 # OLMoE
+    (2, 25, 5, 4096, 64, dict(causal=True, window=1024)),      # Hymba local
+    (2, 25, 5, 4096, 64, dict(causal=True)),                   # Hymba global
+    (1, 25, 5, 1100, 64, dict(causal=True, window=1024)),      # ragged
+])
+def test_flash_at_the_family_prefill_shapes(b, hq, hkv, s, d, kw):
+    """bf16 at OLMoE's (MHA, D = 128) and Hymba's (group 5, D = 64,
+    window 1024) prefill shapes against the plain version: ``rel_err``
+    within ``REL_TOL``."""
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+               .bfloat16() for h in (hq, hkv, hkv))
+    got = fops.flash_attention(q, k, v, **kw)
+    want = mha_plain(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    assert rel_err(got, want) <= REL_TOL[torch.bfloat16]

@@ -11,8 +11,10 @@ with ``scan_layers=False, remat=False`` (under scan or remat the
 reference's flash path fails: ``layers.py:301`` calls ``int()`` on a
 traced window).  Tolerances: float32 throughout, 2e-5 for single layers
 and 1e-4 for whole models (summation order only).  Plus the port's own
-decode-matches-forward check, the flash ``prefix`` raise, the families
-that are not ported, and the import boundary.
+decode-matches-forward check, the flash ``prefix`` raise, the configs of
+all ten architectures, and the import boundary.  The other families are
+held against the reference in ``tests/test_torch_{moe,hybrid,xlstm,
+encdec,vlm,families}.py``.
 """
 import dataclasses
 import subprocess
@@ -27,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs.base import get_config as jget_config  # noqa: E402
+from repro.configs.base import list_archs as jlist_archs  # noqa: E402
 from repro.configs.base import reduced_config as jreduced  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models.registry import build_model as jbuild  # noqa: E402
@@ -34,9 +37,8 @@ from repro.train.serve_step import greedy_generate as jgreedy  # noqa: E402
 from repro_torch.configs import base as CB  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
-from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.models.transformer import (  # noqa: E402
-    DenseLM, params_from_numpy)
+from repro_torch.models.registry import params_from_numpy  # noqa: E402
+from repro_torch.models.transformer import DenseLM  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -157,13 +159,8 @@ def test_mlp_apply_matches_reference(act):
 
 @pytest.mark.parametrize("arch", ARCHS + ("hymba_1p5b",))
 def test_layer_windows_match_reference(arch):
-    jcfg = jget_config(arch)
-    if arch == "hymba_1p5b":       # hybrid: only the window rule is shared
-        tcfg = CB.ModelConfig(**dataclasses.asdict(jcfg))
-    else:
-        tcfg = CB.get_config(arch)
-    assert TL.layer_windows(tcfg) == np.asarray(
-        JL.layer_windows(jcfg)).tolist()
+    assert TL.layer_windows(CB.get_config(arch)) == np.asarray(
+        JL.layer_windows(jget_config(arch))).tolist()
 
 
 # ----------------------------------------------------------------- models
@@ -248,26 +245,12 @@ def test_serve_cli_on_the_cpu(capsys):
     assert "generated (2, 3)" in out and "on cpu" in out
 
 
-# ------------------------------------------------- what is not ported yet
-
-@pytest.mark.parametrize("arch", sorted(CB.UNPORTED))
-def test_get_config_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CB.get_config(arch)
-
-
-@pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "encdec", "vlm"])
-def test_build_model_raises_for_families_not_ported(family):
-    cfg = dataclasses.replace(CB.reduced_config(CB.get_config("gemma2-2b")),
-                              family=family)
-    with pytest.raises(NotImplementedError, match=family):
-        build_model(cfg, device="cpu")
-
+# ---------------------------------------------- configs, import boundary
 
 def test_configs_match_reference():
+    """All ten architectures, field for field, full and reduced."""
+    assert CB.list_archs() == jlist_archs()
     for arch in CB.list_archs():
-        if arch in CB.UNPORTED:
-            continue
         assert dataclasses.asdict(CB.get_config(arch)) == \
             dataclasses.asdict(jget_config(arch))
         assert CB.get_config(arch).param_count() == \
@@ -280,6 +263,10 @@ def test_serving_path_imports_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "import repro_torch.configs\n"
             "import repro_torch.models, repro_torch.models.transformer\n"
+            "import repro_torch.models.moe, repro_torch.models.mamba\n"
+            "import repro_torch.models.hybrid, repro_torch.models.xlstm\n"
+            "import repro_torch.models.encdec, repro_torch.models.vlm\n"
+            "import repro_torch.models.registry\n"
             "import repro_torch.train.serve_step\n"
             "import repro_torch.launch.serve\n"
             "import repro_torch.kernels.flash_attention\n"
