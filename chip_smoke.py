@@ -15,9 +15,11 @@ Gemma-2 2B serving through ``greedy_generate`` and training through
 OLMoE, Hymba, xLSTM, Whisper and PaliGemma serving through
 ``greedy_generate``)
 and checks the answers against host oracles (scipy, numpy), the plain
-versions on the card and float32 models.  Phases, in the order they run
-(7 runs between 5 and 6); any failure exits non-zero and prints no result
-line:
+versions on the card and float32 models; then the distributed engine on
+a device mesh (a 1 x 1 NCCL mesh in this process, a 2 x 2 gloo mesh of
+four processes on the one card).  Phases, in the order they run (7 runs
+between 5 and 6, 10 between 7's service fusion and the rest of 7); any
+failure exits non-zero and prints no result line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -61,7 +63,8 @@ line:
               boolean band mask over k and v repeated to the query heads;
               none applies a softcap)
   3. engine   on the V = 2^20 identifier graph through ``LocalEngine.run``:
-              CC, BFS (4 sources), SSSP (to 8192 supersteps) and k-core
+              CC, BFS (4 sources) and SSSP (each to 4096 supersteps) and
+              k-core
               (k = 4) with variant
               dense, fused and frontier, and fused once more with
               ``use_kernels=False`` (the plain version on the card):
@@ -147,6 +150,26 @@ line:
               gradient compression; the restarted run's final state files
               equal the uninterrupted run's byte for byte, and every run's
               loss falls
+ 10. mesh     (runs after phase 7's service fusion, on the phase-4
+              graph) the distributed engine on a ``DeviceMesh``: (a) a
+              1 x 1 NCCL mesh in this process: CC, PageRank, BFS and SSSP
+              (64 supersteps) through ``DistributedEngine(coo, mesh=...)``
+              and ``GraphPlatform(coo, mesh=...)``, byte-equal to phase
+              4's answers (PageRank within PAGERANK_L1_TOL), no kernel
+              launched; ms per BFS superstep on the mesh against the
+              meshless dense path over the same shard, in turns.  (b) four
+              processes (``chip_smoke.py --mesh-rank R``) on a 2 x 2 gloo
+              mesh on the one card (NCCL refuses two ranks on one GPU),
+              CUDA tensors staged through the host by gloo, layouts (2, 1)
+              and (2, 2): CC, PageRank, BFS / SSSP (64 supersteps), LPA,
+              k-core and HITS on ``user_follow_graph(2**20, 5.0, seed=3)``
+              (symmetrized for CC, LPA, k-core), bitset triangles at 2^14,
+              each against LocalEngine on the card (exact answers
+              byte-equal, PageRank within 1e-6, HITS within 1e-4), no
+              kernel launched, and a planted fault (one rank's data shard
+              without edges) that must show; its times check wiring and
+              are not a multi-card measure.  Every process group has a
+              120 s timeout
   9. families the other LM families at full width, one model at a time
               (bf16 activations over float32 masters from seed 0, freed
               before the next), each through ``greedy_generate`` with 2
@@ -208,10 +231,12 @@ MAIN_LOG2V = 24            # the main-path graph (dense path: over budget)
 KCORE_K = 4
 KCORE_K_COUNT = 8
 BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
-# superstep bound of phase 3's SSSP (uncapped it runs 67,651 supersteps on
-# the ring lattice: 141 s over its five runs); every variant still runs
-# the same supersteps and is compared byte for byte
-PHASE3_SSSP_ITERS = 8192
+# superstep bounds of phase 3's BFS and SSSP (uncapped they run 14,528 and
+# 67,651 supersteps on the ring lattice, SSSP 141 s over its five runs);
+# every variant still runs the same supersteps and is compared byte for
+# byte.  4096 each (SSSP was 8192, BFS uncapped, until phase 10 came)
+PHASE3_BFS_ITERS = 4096
+PHASE3_SSSP_ITERS = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
@@ -985,7 +1010,8 @@ def engine_phase(coo, coo_small):
     rows = []
     sources = tuple(i * V // 4 for i in range(4))
     for algo, params in (("connected_components", {}),
-                         ("bfs", {"sources": sources}),
+                         ("bfs", {"sources": sources,
+                                  "max_iters": PHASE3_BFS_ITERS}),
                          ("sssp", {"source": V // 3,
                                    "max_iters": PHASE3_SSSP_ITERS}),
                          ("k_core", {"k": KCORE_K})):
@@ -1053,7 +1079,8 @@ def superstep_breakdown(eng, engine_rows, checks):
     V = eng.coo.n_vertices
     rows = []
     for algo, params in (("bfs", {"sources": tuple(i * V // 4
-                                                   for i in range(4))}),
+                                                   for i in range(4)),
+                                  "max_iters": PHASE3_BFS_ITERS}),
                          ("sssp", {"source": V // 3,
                                    "max_iters": PHASE3_SSSP_ITERS})):
         torch.cuda.synchronize()
@@ -1199,6 +1226,21 @@ def triangle_rows(eng, plain, coo, size, bitset=False):
 
 # --------------------------------------------------------------- phase 4
 
+def phase4_queries(V: int) -> dict:
+    """Phase 4's queries by name, in the order they run (PageRank on the
+    unit-weight view); phase 10(a) asks the same of the mesh."""
+    from repro_torch.core.query import GraphQuery
+    sources = tuple((i * V // 4 + 12345) % V for i in range(4))
+    return {
+        "cc": GraphQuery.connected_components(),
+        "cc_count": GraphQuery.connected_components(count_only=True),
+        "pagerank": GraphQuery.pagerank(tol=PAGERANK_HALT_L1 / V),
+        "bfs": GraphQuery.bfs(sources, max_iters=BFS_HOPS),
+        "sssp": GraphQuery.sssp(V // 3, max_iters=BFS_HOPS),
+        "cc_repeat": GraphQuery.connected_components(),
+    }
+
+
 def platform_phase(coo):
     import torch
     from repro_torch.core import graph as G
@@ -1211,16 +1253,10 @@ def platform_phase(coo):
     unit = GraphPlatform(G.GraphCOO(coo.src, coo.dst,
                                     (coo.w > 0).to(torch.float32), V,
                                     coo.n_edges, coo.symmetric))
-    sources = tuple((i * V // 4 + 12345) % V for i in range(4))
-    sssp_src = V // 3
-    queries = [
-        ("cc", plat, GraphQuery.connected_components()),
-        ("cc_count", plat, GraphQuery.connected_components(count_only=True)),
-        ("pagerank", unit, GraphQuery.pagerank(tol=PAGERANK_HALT_L1 / V)),
-        ("bfs", plat, GraphQuery.bfs(sources, max_iters=BFS_HOPS)),
-        ("sssp", plat, GraphQuery.sssp(sssp_src, max_iters=BFS_HOPS)),
-        ("cc_repeat", plat, GraphQuery.connected_components()),
-    ]
+    qs = phase4_queries(V)
+    sources, sssp_src = qs["bfs"].params["sources"], qs["sssp"].params["source"]
+    queries = [(name, unit if name == "pagerank" else plat, q)
+               for name, q in qs.items()]
     out, rows = {}, []
     for name, p, q in queries:
         r, row = _timed_query(name, p, q)
@@ -1231,7 +1267,7 @@ def platform_phase(coo):
     del unit
     check_oracles(coo, out, sources, sssp_src)
     rows += cohesion_queries(plat, coo)
-    return plat, rows
+    return plat, rows, out
 
 
 def _timed_query(name, p, q, temp=None):
@@ -2082,6 +2118,327 @@ def cli_phase():
            "pairs": want, "stdout": out.stdout.strip().splitlines()[-2:]}
     log("slice " + json.dumps(row))
     return row
+
+
+# -------------------------------------------------------------- phase 10
+#
+# The distributed engine on a device mesh.  (a) A 1 x 1 NCCL mesh in
+# this process, on the phase-4 graph: the mesh path's answers against
+# phase 4's, and its ms per superstep beside the meshless dense path's
+# (the difference is the path's own collectives and halt reduction).
+# (b) A 2 x 2 mesh of four processes on the one card over gloo (NCCL
+# refuses two ranks on one GPU), CUDA tensors staged through the host by
+# gloo: every collective's wiring on real CUDA tensors, against
+# LocalEngine on the card.  Its times are not a multi-card measure.
+
+MESH_TIMEOUT_S = 120.0     # every process group of phase 10
+MESH_GLOO_LOG2V = 20       # the four-rank world's user-follow graph
+MESH_GLOO_DIR = ROOT / "build" / "mesh_gloo"
+MESH_GLOO_WORLD = 4
+MESH_GLOO_DEADLINE_S = 300.0
+MESH_NCCL_PATH = f"DistributedEngine/GraphPlatform mesh 1x1 NCCL V=2^{MAIN_LOG2V}"
+MESH_GLOO_PATH = (f"DistributedEngine mesh 2x2 gloo V=2^{MESH_GLOO_LOG2V} "
+                  f"(4 ranks on one card)")
+PAGERANK_MESH_ATOL = 1e-6  # tests/test_pregel.py's mesh PageRank
+HITS_MESH_ATOL = 1e-4      # tests/test_hits.py's tolerance
+# (name, graph, algorithm, params) of the four-rank world; graphs: "d"
+# directed, unit weights; "w" directed, weights multiples of 1/4 in
+# [1, 4]; "s" symmetrized; "t" the 2^14 one, symmetrized, no self-loops
+MESH_GLOO_QUERIES = (
+    ("cc", "s", "connected_components", {}),
+    ("pagerank", "d", "pagerank", {"max_iters": 30, "tol": 1e-9}),
+    ("bfs", "d", "bfs", {"sources": (0, 7), "max_iters": BFS_HOPS}),
+    ("sssp", "w", "sssp", {"source": 0, "max_iters": BFS_HOPS}),
+    ("lpa", "s", "label_propagation", {"max_iters": 10, "n_channels": 16}),
+    ("kcore", "s", "k_core", {"k": 3}),
+    ("hits", "d", "hits", {"max_iters": 20, "tol": 1e-6}),
+    ("triangles", "t", "triangle_count", {}),
+)
+
+
+def mesh_gloo_graphs(device):
+    """The four-rank world's graphs, from seeds (every rank builds the
+    same ones)."""
+    import numpy as np
+    from repro_torch.core import graph as G
+    from repro_torch.data import synthetic
+    V = 2 ** MESH_GLOO_LOG2V
+    src, dst = synthetic.user_follow_graph(V, 5.0, seed=3)
+    w = (1.0 + np.random.default_rng(4).integers(0, 13, src.size) / 4.0
+         ).astype(np.float32)
+    s14, d14 = synthetic.user_follow_graph(2 ** BITSET_LOG2V, 5.0, seed=3)
+    keep = s14 != d14
+    return {"d": G.build_coo(src, dst, V, device=device),
+            "w": G.build_coo(src, dst, V, w=w, device=device),
+            "s": G.build_coo(src, dst, V, symmetrize=True, device=device),
+            "t": G.build_coo(s14[keep], d14[keep], 2 ** BITSET_LOG2V,
+                             symmetrize=True, device=device)}
+
+
+def _values(r) -> dict:
+    """A query's value as host arrays by field."""
+    import numpy as np
+    v = r.value
+    if isinstance(v, dict):
+        return {k: x.cpu().numpy() for k, x in v.items()}
+    if isinstance(v, (int, float)):
+        return {"value": np.asarray(v)}
+    return {"value": v.cpu().numpy()}
+
+
+def mesh_gloo_rank(rank: int) -> int:
+    """One rank of phase 10(b) (``chip_smoke.py --mesh-rank R``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import DistributedEngine
+    from repro_torch.launch import mesh as M
+    mesh = M.make_mesh((2, 2), device_type="cuda", backend="gloo",
+                       init_method="file://" + str(MESH_GLOO_DIR / "rdv"),
+                       world_size=MESH_GLOO_WORLD, rank=rank,
+                       timeout_s=MESH_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gs = mesh_gloo_graphs(dev)
+    out, meta = {}, {"rank": rank, "coordinate": list(mesh.get_coordinate()),
+                     "device": str(dev), "rows": []}
+    reset_counts()
+    for nm in (1, 2):
+        tag = f"2x{nm}"
+        engines = {k: DistributedEngine(g, mesh=mesh, n_model=nm)
+                   for k, g in gs.items()}
+        for name, gk, algo, params in MESH_GLOO_QUERIES:
+            eng = engines[gk]
+            variant = "bitset" if algo == "triangle_count" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = eng.run(algo, params, variant=variant)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for k, v in _values(r).items():
+                out[f"{name}/{tag}/{k}"] = v
+            meta["rows"].append({"query": name, "layout": tag,
+                                 "iterations": r.iterations,
+                                 "wall_ms": wall * 1e3,
+                                 "realized_variant":
+                                     r.meta.get("realized_variant")})
+        del engines
+    meta["launches"] = launch_counts()
+    # the planted fault: rank 1 drops its data shard's edges (1-D layout)
+    eng = DistributedEngine(gs["s"], mesh=mesh)
+    if rank == 1:
+        sh = eng.sharded
+        eng._sharded = dataclasses.replace(
+            sh, dst=torch.full_like(sh.dst, gs["s"].n_vertices),
+            _index_cache={})
+    out["fault/cc"] = _values(eng.run("connected_components"))["value"]
+    torch.cuda.synchronize()
+    np.savez(MESH_GLOO_DIR / f"rank{rank}.npz", **out)
+    (MESH_GLOO_DIR / f"rank{rank}.json").write_text(json.dumps(meta))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_nccl_phase(g4, phase4):
+    """Phase 10(a): a 1 x 1 NCCL mesh in this process on the phase-4
+    graph, through ``DistributedEngine(coo, mesh=...)`` and
+    ``GraphPlatform(coo, mesh=..., force_engine="distributed")``;
+    byte-equal to phase 4's answers
+    (PageRank within PAGERANK_L1_TOL in L1), no kernel launched; then
+    ms per superstep of a 64-superstep BFS on the mesh against the
+    meshless dense path over the same shard, in turns."""
+    import importlib
+
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.core.engines import DistributedEngine
+    from repro_torch.core.pregel import run_pregel
+    from repro_torch.core.query import GraphPlatform
+    from repro_torch.launch import mesh as M
+    rdv = ROOT / "build" / "mesh_nccl_rdv"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    t_phase = time.perf_counter()
+    mesh = M.make_mesh((1, 1), device_type="cuda",
+                       init_method=f"file://{rdv}", world_size=1, rank=0,
+                       timeout_s=MESH_TIMEOUT_S)
+    V = g4.n_vertices
+    unit = G.GraphCOO(g4.src, g4.dst, (g4.w > 0).to(torch.float32), V,
+                      g4.n_edges, g4.symmetric)
+    queries = phase4_queries(V)
+    rows = []
+    reset_counts()
+    for via in ("DistributedEngine", "GraphPlatform"):
+        if via == "DistributedEngine":
+            runners = {"w": DistributedEngine(g4, mesh=mesh),
+                       "unit": DistributedEngine(unit, mesh=mesh)}
+        else:
+            # forced onto the mesh's engine: at one chip the planner
+            # routes these to the local engine
+            runners = {"w": GraphPlatform(g4, mesh=mesh,
+                                          force_engine="distributed"),
+                       "unit": GraphPlatform(unit, mesh=mesh,
+                                             force_engine="distributed")}
+        for name in ("cc", "pagerank", "bfs", "sssp"):
+            q = queries[name]
+            p = runners["unit" if name == "pagerank" else "w"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = p.run(q.algorithm, q.params) if via == "DistributedEngine" \
+                else p.query(q)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = phase4[name]
+            if name == "pagerank":
+                err = float((r.value - want.value).abs().sum())
+                ok = err <= PAGERANK_L1_TOL
+            else:
+                err = max_abs_err(r.value, want.value)
+                ok = bits_equal(r.value, want.value)
+            if not ok or r.iterations != want.iterations:
+                fail(f"mesh 1x1 {via} {name}: differs from phase 4 "
+                     f"(error {err}, {r.iterations} against "
+                     f"{want.iterations} iterations)")
+            row = {"path": via, "query": name, "engine": r.engine,
+                   "iterations": r.iterations, "wall_ms": wall * 1e3,
+                   "ms_per_superstep": wall * 1e3 / max(r.iterations, 1),
+                   "error_vs_phase4": err}
+            if via == "GraphPlatform":
+                row["plan"] = r.meta["plan"].engine
+            log("mesh " + json.dumps(row))
+            rows.append(row)
+        del runners
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"the 1x1 mesh path launched kernels: {counts}")
+    # ms per superstep: the same BFS over the same edge shard through
+    # run_pregel on the mesh and without it, in turns (host clock,
+    # synchronised): the difference is the mesh path's collectives
+    TR = importlib.import_module("repro_torch.core.algorithms.traversal")
+    sg = DistributedEngine(g4, mesh=mesh).sharded
+    init = TR._init_distances(queries["bfs"].params["sources"], sg.n_pad,
+                              g4.device)
+    run_pregel(TR._BFS_SPEC, sg, init, BFS_HOPS, mesh=mesh)   # warm-up
+    turns = []
+    for label in ("meshless", "mesh", "mesh", "meshless"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, it = run_pregel(TR._BFS_SPEC, sg, init, BFS_HOPS,
+                           mesh=mesh if label == "mesh" else None)
+        torch.cuda.synchronize()
+        turns.append((label, (time.perf_counter() - t0) * 1e3 / it))
+    timing = {"query": "bfs", "supersteps": it,
+              "ms_per_superstep": {
+                  k: [round(t, 4) for lab, t in turns if lab == k]
+                  for k in ("mesh", "meshless")}}
+    del sg, init, unit
+    torch.distributed.destroy_process_group()
+    row = {"rows": rows, "timing": timing,
+           "phase_s": time.perf_counter() - t_phase}
+    log("mesh nccl " + json.dumps(timing))
+    return row, counts
+
+
+def mesh_gloo_phase():
+    """Phase 10(b): four ranks (``chip_smoke.py --mesh-rank R``) on a 2 x 2
+    gloo mesh on this card, layouts (2, 1) and (2, 2); while they run,
+    this process answers the same queries on LocalEngine on the card.
+    Exact answers byte-equal on every rank, PageRank within 1e-6 and
+    HITS within 1e-4 (max abs); the planted fault (rank 1's data shard
+    without edges) must differ; no rank launched a kernel."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engines import LocalEngine
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_GLOO_DIR, ignore_errors=True)
+    MESH_GLOO_DIR.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--mesh-rank", str(r)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_GLOO_WORLD)]
+    try:
+        gs = mesh_gloo_graphs("cuda")
+        want = {}
+        for name, gk, algo, params in MESH_GLOO_QUERIES:
+            variant = "bitset" if algo == "triangle_count" else None
+            r = LocalEngine(gs[gk]).run(algo, params, variant=variant)
+            want[name] = (_values(r), r.iterations)
+        del gs
+        deadline = time.monotonic() + MESH_GLOO_DEADLINE_S
+        outs = []
+        for p in procs:
+            o, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+            outs.append(o)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t_phase
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"mesh rank {r} exited {p.returncode}:\n{o[-3000:]}")
+    metas, faults, launches = [], [], {}
+    for r in range(MESH_GLOO_WORLD):
+        with np.load(MESH_GLOO_DIR / f"rank{r}.npz") as z:
+            got = dict(z)
+        meta = json.loads((MESH_GLOO_DIR / f"rank{r}.json").read_text())
+        metas.append(meta)
+        for k, c in meta["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+        for name, _, _, _ in MESH_GLOO_QUERIES:
+            vals, iters = want[name]
+            for tag in ("2x1", "2x2"):
+                for k, v in vals.items():
+                    g = got[f"{name}/{tag}/{k}"]
+                    if name in ("pagerank", "hits"):
+                        tol = PAGERANK_MESH_ATOL if name == "pagerank" \
+                            else HITS_MESH_ATOL
+                        err = float(np.abs(g.astype(np.float64) - v).max())
+                        ok = err <= tol
+                    else:
+                        ok = g.dtype == v.dtype and g.shape == v.shape \
+                            and g.tobytes() == v.tobytes()
+                        err = 0.0 if ok else float("inf")
+                    if not ok:
+                        fail(f"mesh rank {r} {name} {tag} {k}: differs from "
+                             f"LocalEngine (error {err})")
+                row = next(x for x in meta["rows"] if x["query"] == name
+                           and x["layout"] == tag)
+                row["max_abs_err"] = err
+                # the 2-D layout runs CC without pointer jumping (the
+                # reference's rule), so in more supersteps
+                same_program = not (name == "cc" and tag == "2x2")
+                if name not in ("pagerank", "hits") and same_program and \
+                        row["iterations"] != iters:
+                    fail(f"mesh rank {r} {name} {tag}: {row['iterations']} "
+                         f"supersteps, LocalEngine {iters}")
+        faults.append(got["fault/cc"].tobytes()
+                      == want["cc"][0]["value"].tobytes())
+    if all(faults):
+        fail("the planted fault (rank 1's data shard without edges) was "
+             "not seen")
+    if any(launches.values()):
+        fail(f"the gloo mesh launched kernels: {launches}")
+    shutil.rmtree(MESH_GLOO_DIR, ignore_errors=True)
+    rows = [dict(x, rank=m["rank"]) for m in metas for x in m["rows"]
+            if m["rank"] == 0]
+    out = {"rows": rows, "fault_seen_on_ranks":
+           [r for r, same in enumerate(faults) if not same],
+           "phase_s": wall,
+           "note": "gloo on one card: a wiring check, not a multi-card "
+                   "measure"}
+    for x in rows:
+        log("mesh gloo " + json.dumps(x))
+    log(f"mesh gloo: {MESH_GLOO_WORLD} ranks on {metas[0]['device']}, "
+        f"fault seen on ranks {out['fault_seen_on_ranks']}, "
+        f"{wall:.1f} s")
+    return out, launches
 
 
 # --------------------------------------------------------------- phase 8
@@ -2962,7 +3319,7 @@ def main() -> int:
     del eng3
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 3 done")
     reset_counts()
-    plat, platform_rows = platform_phase(g4)
+    plat, platform_rows, phase4 = platform_phase(g4)
     paths[f"GraphPlatform.query V=2^{MAIN_LOG2V}"] = launch_counts()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 4 done")
     reset_counts()
@@ -2996,7 +3353,24 @@ def main() -> int:
     reset_counts()
     slice_rows.append(service_fusion(plat, g4))
     paths[f"service fusion V=2^{MAIN_LOG2V}"] = launch_counts()
-    del plat, g4, g_small
+    fusion_s = time.perf_counter() - t_phase
+    del plat, g_small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. the distributed engine on a device mesh (on the phase-4 graph,
+    # while it is alive; the rest of phase 7 follows); the counts are
+    # reset inside, just before each mesh path
+    t_phase = time.perf_counter()
+    mesh_nccl, paths[MESH_NCCL_PATH] = mesh_nccl_phase(g4, phase4)
+    del g4, phase4
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_gloo, paths[MESH_GLOO_PATH] = mesh_gloo_phase()
+    mesh_rows = {"nccl_1x1": mesh_nccl, "gloo_2x2": mesh_gloo}
+    log(f"mesh: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 10 done")
+    t_phase = time.perf_counter()
     reset_counts()
     for run in (two_hop_phase, lambda: lpa_phase(g3), hits_phase, etl_phase,
                 cli_phase):
@@ -3009,7 +3383,8 @@ def main() -> int:
     del g3
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"slice: phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"slice: phase 7 took "
+        f"{fusion_s + time.perf_counter() - t_phase:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 7 done")
 
     # 6. LM serving (the counts are reset inside, just before the path)
@@ -3085,7 +3460,7 @@ def main() -> int:
         "batch": batch_rows, "platform": platform_rows,
         "spmv": spmv_rows, "slice": slice_rows, "serve": serve_rows,
         "train": train_row, "restart": restart_row,
-        "families": family_rows,
+        "families": family_rows, "mesh": mesh_rows,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3160,8 +3535,22 @@ def main() -> int:
     return 0
 
 
+def mesh_worker_main(argv) -> int:
+    """``chip_smoke.py --mesh-rank R``: one rank of phase 10(b)."""
+    import torch
+    if not torch.cuda.is_available() or \
+            not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: a mesh rank needs CUDA and the checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    return mesh_gloo_rank(int(argv[argv.index("--mesh-rank") + 1]))
+
+
 if __name__ == "__main__":
     try:
+        if "--mesh-rank" in sys.argv:
+            sys.exit(mesh_worker_main(sys.argv))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -161,8 +161,7 @@ def _role_shards(eng) -> ShardedCOO:
     engine and reused across queries."""
     key = "hits/sharded"
     if key not in eng.cache:
-        eng.cache[key] = partition(role_graph(eng.coo), eng.n_data,
-                                   eng.n_model, device=eng.device)
+        eng.cache[key] = eng.partition_of(role_graph(eng.coo))
     return eng.cache[key]
 
 

@@ -28,16 +28,22 @@ from repro_torch.core.pregel import PregelSpec, run_pregel
 from repro_torch.kernels.pregel_superstep.ops import msg_src_times_w
 
 
-def _normalize_and_partition(
-    g: G.GraphCOO, n_data: int, n_model: int, device=None,
-) -> tuple[ShardedCOO, torch.Tensor]:
-    """Fold 1/outdeg into edge weights; return sharded edges + dangling mask."""
+def _normalize(g: G.GraphCOO) -> tuple[G.GraphCOO, torch.Tensor]:
+    """Fold 1/outdeg into edge weights; return the graph + dangling mask."""
     outdeg = G.out_degrees(g)
     dangling = (outdeg == 0).to(torch.float32)
     inv = torch.where(outdeg > 0, 1.0 / torch.clamp_min(outdeg, 1.0), 0.0)
     src_c = g.src.clamp(0, g.n_vertices - 1).long()
     w_norm = g.w * inv[src_c]
-    g_norm = G.GraphCOO(g.src, g.dst, w_norm, g.n_vertices, g.n_edges)
+    return G.GraphCOO(g.src, g.dst, w_norm, g.n_vertices, g.n_edges), \
+        dangling
+
+
+def _normalize_and_partition(
+    g: G.GraphCOO, n_data: int, n_model: int, device=None,
+) -> tuple[ShardedCOO, torch.Tensor]:
+    """Fold 1/outdeg into edge weights; return sharded edges + dangling mask."""
+    g_norm, dangling = _normalize(g)
     sharded = partition(g_norm, n_data, n_model, device=device)
     return sharded, dangling.to(sharded.src.device)
 
@@ -63,24 +69,36 @@ def pagerank(
     if sharded is None:
         sharded, dangling = _normalize_and_partition(g, n_data, n_model)
     V = g.n_vertices
+    n_model_eff = sharded.n_model
+    dev = sharded.src.device
+
+    # Vertex state layout: dangling flag rides along per owned vertex.
+    if n_model_eff > 1:
+        d_pad = torch.zeros(sharded.n_pad, dtype=torch.float32, device=dev)
+        d_pad[:V] = dangling
+    else:
+        d_pad = dangling
 
     def global_value(x, ids, valid):
-        # dangling mass of the (replicated) vertex state
-        return torch.where(valid, x * dangling, 0.0).sum()
+        # dangling mass owned by this vertex shard
+        d = d_pad[ids.long()] if n_model_eff > 1 else d_pad
+        return torch.where(valid, x * d, 0.0).sum()
 
     def apply(x, agg, ids, dangling_mass):
         return (1.0 - alpha) / V + alpha * (agg + dangling_mass / V)
 
     def halt(old, new, valid):
-        return torch.where(valid, (new - old).abs(), 0.0).sum() < tol * V
+        # per-shard L1 budget; exact when vertices are replicated
+        budget = tol * V / n_model_eff
+        return torch.where(valid, (new - old).abs(), 0.0).sum() < budget
 
     spec = PregelSpec(
         message=msg_src_times_w, combine="sum", apply=apply, identity=0.0,
         halt=halt, global_value=global_value,
     )
     if init is None:
-        init = torch.full((V,), 1.0 / V, dtype=torch.float32,
-                          device=sharded.src.device)
+        init = torch.full((sharded.n_pad,) if n_model_eff > 1 else (V,),
+                          1.0 / V, dtype=torch.float32, device=dev)
     state, iters = run_pregel(spec, sharded, init, max_iters, mesh=mesh)
     return state[:V], iters
 
@@ -92,8 +110,8 @@ def _normalized(eng):
     cache across queries."""
     key = "pagerank/normalized"
     if key not in eng.cache:
-        eng.cache[key] = _normalize_and_partition(
-            eng.coo, eng.n_data, eng.n_model, device=eng.device)
+        g_norm, dangling = _normalize(eng.coo)
+        eng.cache[key] = (eng.partition_of(g_norm), dangling)
     return eng.cache[key]
 
 
@@ -123,11 +141,13 @@ def _warm_start(eng, params, seed):
         return None
     x = (x / total).astype(np.float32)
     sharded, dangling = _normalized(eng)
+    init = torch.zeros(sharded.n_pad if sharded.n_model > 1 else V,
+                       dtype=torch.float32, device=eng.device)
+    init[:V] = torch.from_numpy(x)
     ranks, iters = pagerank(
         eng.coo, alpha=params["alpha"], tol=params["tol"],
         max_iters=params["max_iters"], mesh=eng.mesh,
-        sharded=sharded, dangling=dangling,
-        init=torch.from_numpy(x).to(eng.device))
+        sharded=sharded, dangling=dangling, init=init)
     return ranks, int(iters)
 
 

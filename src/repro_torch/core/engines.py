@@ -5,9 +5,10 @@
                          never materialize results; on the card its fused
                          superstep runs the hand-written CUDA kernel.
 ``DistributedEngine``  — the Spark/GraphFrames analogue: edge-partitioned
-                         BSP supersteps.  Only its meshless form is
-                         ported (edge shards combined on one device); the
-                         mesh path waits for ``torch.distributed``.
+                         BSP supersteps over a ``DeviceMesh`` (SPMD on
+                         ``torch.distributed``: every rank runs the same
+                         query on its own edge shard), or meshless with
+                         its ``n_data`` shards combined on one device.
 
 Both are the *same* generic executor (``Engine``) configured differently:
 all per-algorithm behaviour lives in the algorithm registry
@@ -37,6 +38,7 @@ from repro_torch.core import planner as P
 from repro_torch.core import registry as R
 from repro_torch.core.partition import ShardedCOO, partition
 from repro_torch.core.pregel import (
+    MeshAxes,
     PregelSpec,
     SuperstepVariant,
     run_pregel,
@@ -69,7 +71,9 @@ class Engine:
     """Generic registry-driven executor over cached graph state.
 
     ``device=None`` places the engine on the first CUDA device (raising
-    without one); a graph built elsewhere is moved there once.
+    without one), or on a mesh on this rank's device; a graph built
+    elsewhere is moved there once.  On a mesh every rank partitions the
+    same graph and keeps only its own edge shard on its device.
     ``use_kernels=True`` (the default) runs the fused superstep variant
     through the hand-written kernel's wrapper — the CUDA kernel on the
     card, its plain version on the CPU; ``False`` forces the plain
@@ -80,10 +84,7 @@ class Engine:
     def __init__(self, coo: G.GraphCOO, mesh=None, n_data: int = 1,
                  n_model: int = 1, max_degree: int = 128, device=None,
                  use_kernels: bool = True):
-        if mesh is not None:
-            raise NotImplementedError("ROADMAP §1 item 12: the mesh path "
-                                      "is not ported yet")
-        self._device = resolve_device(device)
+        self._device = resolve_device(device, mesh=mesh)
         self.coo = coo.to(self._device)
         self.mesh = mesh
         self.n_data = n_data
@@ -146,9 +147,20 @@ class Engine:
         not repay the O(E) host-side partition."""
         with self._exec_lock:
             if self._sharded is None:
-                self._sharded = partition(self.coo, self.n_data,
-                                          self.n_model, device=self.device)
+                self._sharded = self.partition_of(self.coo)
             return self._sharded
+
+    def partition_of(self, g: G.GraphCOO) -> ShardedCOO:
+        """``g``'s edge shards for this engine: all of them on its
+        device, or on a mesh this rank's one (the partition is built on
+        the host, and only the shard moves to the device)."""
+        if self.mesh is None:
+            return partition(g, self.n_data, self.n_model,
+                             device=self.device)
+        ax = MeshAxes(self.mesh)
+        sg = partition(g, self.n_data, self.n_model, device="cpu")
+        return sg.shard(ax.d, ax.m if self.n_model > 1 else 0,
+                        device=self.device)
 
     @property
     def ell(self) -> G.GraphELL:
@@ -675,8 +687,12 @@ class LocalEngine(Engine):
 
 
 class DistributedEngine(Engine):
-    """Edge-partitioned BSP engine (Spark analogue).  Meshless only: the
-    ``n_data`` edge shards are combined on one device."""
+    """Edge-partitioned BSP engine over a device mesh (Spark analogue).
+
+    On a ``DeviceMesh`` the shard counts are the mesh's: ``n_data`` its
+    ``data`` axis, ``n_model`` its ``model`` axis when ``n_model > 1``
+    asks for the 2-D layout (else 1: a replicated model axis).  Without
+    one, the ``n_data`` edge shards are combined on one device."""
 
     name = "distributed"
 
@@ -684,9 +700,16 @@ class DistributedEngine(Engine):
                  n_data: Optional[int] = None, n_model: int = 1,
                  max_degree: int = 128, device=None,
                  use_kernels: bool = True):
-        super().__init__(coo, mesh=mesh, n_data=n_data or 1,
-                         n_model=n_model, max_degree=max_degree,
-                         device=device, use_kernels=use_kernels)
+        if mesh is not None:
+            axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            nd = int(axis_sizes.get("data", 1))
+            nm = int(axis_sizes.get("model", 1)) if n_model > 1 else 1
+        else:
+            nd = n_data or 1
+            nm = n_model
+        super().__init__(coo, mesh=mesh, n_data=nd, n_model=nm,
+                         max_degree=max_degree, device=device,
+                         use_kernels=use_kernels)
 
     def _clone(self) -> "DistributedEngine":
         return DistributedEngine(self.coo, mesh=self.mesh,

@@ -3,18 +3,23 @@
 One Pregel superstep (Malewicz et al., the model GraphFrames ultimately
 lowers to) is::
 
-    gather   : read source-vertex state along edges
+    gather   : read source-vertex state along edges        (local gather /
+               all_gather over the ``model`` axis when vertex-sharded)
     message  : per-edge compute
-    combine  : segment-reduce messages to destinations
+    combine  : segment-reduce messages to destinations     (local)
+    shuffle  : merge partial aggregates across edge shards (all_reduce
+               SUM/MIN/MAX over the ``data`` axis of a DeviceMesh — Spark's
+               shuffle becomes one collective)
     apply    : per-vertex state update
 
 Everything is statically shaped: padded edges carry the sentinel vertex
 id and are dropped at the segment-combine.  PyTorch runs eagerly, so the
 superstep loop is a Python loop, and convergence is read on the host:
 one ``.item()`` synchronisation per superstep (the reference decides it
-on the device inside one ``lax.while_loop``).  Iteration counts are the
-reference's exactly.  The per-superstep sync is the first thing a later
-change removes, by capturing the loop in a CUDA graph.
+on the device inside one ``lax.while_loop``; on a mesh the ranks first
+sum their unconverged shards with one more ``all_reduce``).  Iteration
+counts are the reference's exactly.  The per-superstep sync is the first
+thing a later change removes, by capturing the loop in a CUDA graph.
 
 Three strategies execute a superstep: the dense gather/segment-combine
 path (``run_pregel``, the correctness oracle), the fused ELL kernel
@@ -326,37 +331,172 @@ def _gval(spec, state, agg, ids, valid):
     return spec.global_value(g_src, ids, valid)
 
 
+class MeshAxes:
+    """This rank's place on a ``DeviceMesh``: its coordinate, each axis'
+    size and the process group along it (``model`` may be absent: one
+    model shard)."""
+
+    def __init__(self, mesh, axis_data: str = "data",
+                 axis_model: str = "model"):
+        names = tuple(mesh.mesh_dim_names or ())
+        if axis_data not in names:
+            raise ValueError(f"the mesh has no {axis_data!r} axis: {names}")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not on the mesh")
+        sizes = dict(zip(names, mesh.mesh.shape))
+        at = dict(zip(names, coord))
+        self.n_data, self.d = int(sizes[axis_data]), int(at[axis_data])
+        self.data_group = mesh.get_group(axis_data)
+        if axis_model in names:
+            self.n_model, self.m = int(sizes[axis_model]), int(at[axis_model])
+            self.model_group = mesh.get_group(axis_model)
+        else:
+            self.n_model, self.m, self.model_group = 1, 0, None
+        self._ranks, self._coord = mesh.mesh, list(coord)
+        self._i_data = names.index(axis_data)
+        self._i_model = names.index(axis_model) if axis_model in names \
+            else None
+
+    def rank_at(self, d: int, m: int = 0) -> int:
+        """The global rank at ``(d, m)`` (other axes: this rank's)."""
+        c = list(self._coord)
+        c[self._i_data] = d
+        if self._i_model is not None:
+            c[self._i_model] = m
+        return int(self._ranks[tuple(c)])
+
+    def broadcast_object(self, obj):
+        """``obj`` as the rank at ``(0, 0)`` holds it, on every rank:
+        broadcast along ``data`` from ``(0, 0)``, then along ``model``
+        from ``(d, 0)``."""
+        import torch.distributed as dist
+        box = [obj]
+        if self.m == 0:
+            dist.broadcast_object_list(box, src=self.rank_at(0, 0),
+                                       group=self.data_group)
+        if self.model_group is not None:
+            dist.broadcast_object_list(box, src=self.rank_at(self.d, 0),
+                                       group=self.model_group)
+        return box[0]
+
+
+_DIST_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+
+
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``lax.psum`` / ``pmin`` / ``pmax`` over one mesh axis (in place
+    on a contiguous ``x``; returns the reduced tensor)."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    dist.all_reduce(x, op=getattr(dist.ReduceOp, _DIST_OPS[op]), group=group)
+    return x
+
+
+def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)`` along the leading axis.  The
+    list form of ``all_gather`` writes straight into the chunks of one
+    output tensor; every supported PyTorch has it, and none warns that
+    it is going away."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather(list(out.chunk(n)), x, group=group)
+    return out
+
+
+def _shard_combine(agg, op, group):
+    """Cross-shard merge of partial aggregates (grouped ops one column
+    group at a time)."""
+    if isinstance(op, tuple):
+        parts, c0 = [], 0
+        for o, width in op:
+            parts.append(_all_reduce(agg[..., c0:c0 + width], o, group))
+            c0 += width
+        return torch.cat(parts, dim=-1)
+    return _all_reduce(agg, op, group)
+
+
+def _local_shard(sg: ShardedCOO, ax: MeshAxes, device) -> ShardedCOO:
+    """This rank's shard of ``sg`` on ``device`` (cut once and cached on
+    ``sg``); ``sg`` itself when it already is that one shard."""
+    sharded = sg.vertex_layout == "sharded"
+    if sg.n_data != ax.n_data:
+        raise ValueError(f"{sg.n_data} data shards on a mesh whose data "
+                         f"axis has {ax.n_data} ranks")
+    if sharded and sg.n_model != ax.n_model:
+        raise ValueError(f"{sg.n_model} model shards on a mesh whose "
+                         f"model axis has {ax.n_model} ranks")
+    m = ax.m if sharded else 0
+    if sg.coord is not None:
+        if tuple(sg.coord) != (ax.d, m):
+            raise ValueError(f"the shard of {tuple(sg.coord)} on the rank "
+                             f"at {(ax.d, m)}")
+        return sg
+    key = ("shard", ax.d, m, str(device))
+    got = sg._index_cache.get(key)
+    if got is None:
+        got = sg.shard(ax.d, m, device=device)
+        sg._index_cache[key] = got
+    return got
+
+
 def run_pregel(
     spec: PregelSpec,
     sg: ShardedCOO,
     init_state: torch.Tensor,
     max_iters: int,
     mesh=None,
+    axis_data: str = "data",
+    axis_model: str = "model",
 ):
-    """Run the vertex program to convergence (or ``max_iters``) on one
-    device.
+    """Run the vertex program to convergence (or ``max_iters``).
 
-    Returns ``(final_state [V], iterations_run)``.  The edge shards of a
-    1-D ``ShardedCOO`` are concatenated and combined as one.  A device
-    mesh (and with it the 2-D vertex-sharded layout) is not ported yet.
-    State ``[V, B]`` under a ``batched_spec`` program is gathered and
-    combined one column at a time; apply and halt see all of it.
+    Returns ``(final_state [V or n_model*v_local], iterations_run)``.
+    With ``mesh=None`` the edge shards of a 1-D ``ShardedCOO`` are
+    concatenated and combined as one on one device.  On a
+    ``DeviceMesh`` every rank runs this same call (SPMD): it combines its
+    own shard, merges the partial aggregates with one ``all_reduce`` over
+    ``data`` (a grouped combine one column group at a time), and in the
+    2-D layout gathers the vertex state over ``model`` once a superstep
+    and sums ``global_value`` over ``model``.  The halt's unconverged
+    shards are summed over the mesh, so every rank runs the same
+    supersteps, and every rank returns the whole state.  A model axis
+    larger than a 1-D layout's one shard replicates the program.  State
+    ``[V, B]`` under a ``batched_spec`` program is gathered and combined
+    one column at a time; apply and halt see all of it.
     """
     check_precision(spec)
-    if mesh is not None or sg.vertex_layout == "sharded":
-        raise NotImplementedError("ROADMAP §1 item 12: the mesh path of "
-                                  "run_pregel is not ported yet")
+    if mesh is None:
+        if sg.vertex_layout == "sharded":
+            raise ValueError("run_pregel: a vertex-sharded layout needs a "
+                             "mesh")
+        return _run_dense(spec, sg, init_state, max_iters, None)
+    ax = MeshAxes(mesh, axis_data, axis_model)
+    return _run_dense(spec, _local_shard(sg, ax, init_state.device),
+                      init_state, max_iters, ax)
+
+
+def _run_dense(spec, sg, init_state, max_iters, ax):
     V = sg.n_vertices
     v_local = sg.v_local
+    sharded = sg.vertex_layout == "sharded"
     dev = init_state.device
-    ids = torch.arange(v_local, dtype=torch.int32, device=dev)
-    valid = ids < V
+    start = sg.v_start
     n_state = init_state.shape[0]
+    if sharded:
+        if n_state != sg.n_pad:
+            raise ValueError(f"run_pregel: 2-D state must be padded to "
+                             f"n_pad = {sg.n_pad}, got {n_state}")
+        init_state = init_state[start:start + v_local]
+    ids = start + torch.arange(v_local, dtype=torch.int32, device=dev)
+    valid = ids < V
     src_idx = sg.gather_index("src", n_state)
     dst_idx = sg.gather_index("dst", n_state) if spec.needs_dst_state \
         else None
     seg = sg.combine_index()
-    freeze = v_local > V
+    freeze = start + v_local > V
     by_column = isinstance(spec.message, Lifted) and init_state.dim() == 2
 
     def messages(message, state):
@@ -371,31 +511,55 @@ def run_pregel(
                               spec.identity)
 
     def one_iter(state):
+        full = _all_gather(state, ax.model_group, ax.n_model) if sharded \
+            else state
         if by_column:
             # a batched_spec program: each column gathered, messaged and
             # combined as its query alone is (torch gathers [E, B] rows
             # several times slower than B columns of [E]).  The state and
             # the aggregate stay [B, V] in memory: the vmapped hooks keep
             # that layout, so the transpose below copies nothing
-            cols = state.t().contiguous()
+            cols = full.t().contiguous()
             agg = torch.stack([messages(spec.message.base, col)
-                               for col in cols]).t()
+                               for col in cols])
+            if ax is not None:
+                agg = _shard_combine(agg, spec.combine, ax.data_group)
+            agg = agg.t()
         else:
-            agg = messages(spec.message, state)
-        new = spec.apply(state, agg, ids, _gval(spec, state, agg, ids,
-                                                valid))
+            agg = messages(spec.message, full)
+            if ax is not None:
+                agg = _shard_combine(agg, spec.combine, ax.data_group)
+        gval = _gval(spec, state, agg, ids, valid)
+        if sharded and spec.global_value is not None:
+            gval = _all_reduce(torch.as_tensor(gval, device=dev), "sum",
+                               ax.model_group)
+        new = spec.apply(state, agg, ids, gval)
         if freeze:                              # freeze padding slots
             vmask = valid.reshape(valid.shape + (1,) * (new.dim() - 1))
             new = torch.where(vmask, new, state)
         return new
 
-    halt = None if spec.halt is None else \
-        (lambda old, new: spec.halt(old, new, valid))
-    if not by_column:
-        return _superstep_loop(one_iter, init_state, max_iters, halt)
-    state, iters = _superstep_loop(one_iter, init_state.t().contiguous().t(),
-                                   max_iters, halt)
-    return state.contiguous(), iters
+    halt = None
+    if spec.halt is not None and ax is None:
+        def halt(old, new):
+            return spec.halt(old, new, valid)
+    elif spec.halt is not None:
+        def halt(old, new):
+            # shards unconverged anywhere on the mesh (the 1-D layout's
+            # model replicas agree, so they are not counted twice)
+            conv = torch.as_tensor(spec.halt(old, new, valid), device=dev)
+            not_conv = torch.logical_not(conv).to(torch.int32).reshape(1)
+            not_conv = _all_reduce(not_conv, "sum", ax.data_group)
+            if sharded:
+                not_conv = _all_reduce(not_conv, "sum", ax.model_group)
+            return int(not_conv.item()) == 0
+
+    if by_column:
+        init_state = init_state.t().contiguous().t()
+    state, iters = _superstep_loop(one_iter, init_state, max_iters, halt)
+    if sharded:
+        state = _all_gather(state, ax.model_group, ax.n_model)
+    return (state.contiguous() if by_column else state), iters
 
 
 def _check_superstep_spec(spec: PregelSpec, what: str) -> None:

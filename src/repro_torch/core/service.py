@@ -95,6 +95,7 @@ from repro_torch.core import pools as PL
 from repro_torch.core import registry as R
 from repro_torch.core import runtime as RT
 from repro_torch.core.engines import DistributedEngine, LocalEngine, QueryResult
+from repro_torch.core.pregel import MeshAxes
 from repro_torch.device import resolve_device
 
 # re-exported so service users see one import surface for the typed
@@ -173,8 +174,9 @@ class GraphContext:
                  residency: Optional[Iterable[str]] = None,
                  device=None):
         # the snapshot's home device: ``None`` is the first CUDA device
-        # (raising without one); a graph built elsewhere moves here once
-        self.device = resolve_device(device)
+        # (raising without one), on a mesh this rank's; a graph built
+        # elsewhere moves here once
+        self.device = resolve_device(device, mesh=mesh)
         coo = coo.to(self.device)
         self.coo = coo
         self.mesh = mesh
@@ -199,12 +201,11 @@ class GraphContext:
         self._dist: Optional[DistributedEngine] = None
         self._local_max_degree = local_max_degree
         self._n_data, self._n_model = n_data, n_model
-        if mesh is not None:
-            self.n_chips = 1
-            for s in mesh.devices.shape:
-                self.n_chips *= s
-        else:
-            self.n_chips = max(n_data * n_model, 1)
+        # on a mesh every rank plans; rank (0, 0)'s plan is the one all
+        # of them run (see ``plan``)
+        self._axes = MeshAxes(mesh) if mesh is not None else None
+        self.n_chips = int(mesh.mesh.numel()) if mesh is not None \
+            else max(n_data * n_model, 1)
         self._plan_cache_size = plan_cache_size
         self._plan_cache: OrderedDict = OrderedDict()
         self._applied_measurements: dict = {}
@@ -357,24 +358,37 @@ class GraphContext:
         :func:`~repro_torch.core.planner.price_incremental`.  It joins the
         cache key: the same query shape plans differently once an
         ancestor's result appears in the cache, and the delta itself is
-        immutable per context (``self.coo.delta``) so it need not."""
+        immutable per context (``self.coo.delta``) so it need not.
+
+        On a device mesh every rank plans and then takes the plan of the
+        rank at ``(0, 0)`` (one ``broadcast_object_list`` along each
+        axis): the choice rests on measured timings and calibration,
+        which may differ between ranks, and two ranks that run different
+        engines or variants call different collectives and hang.  The
+        reference's single controller plans once for the whole mesh."""
         with self._lock:
-            stats = self.current_stats()
-            qkey = self._query_key(q)
-            key = None if qkey is None else (qkey, seed_mode)
-            if key is not None and key in self._plan_cache:
-                self._plan_cache.move_to_end(key)
-                return self._plan_cache[key]
-            pools = self._placement_pools()
-            plan = self._plan_uncached(
-                q, stats, pools,
-                self.residency if pools is not None else None,
-                seed_mode=seed_mode)
-            if key is not None and self._plan_cache_size:
-                self._plan_cache[key] = plan
-                while len(self._plan_cache) > self._plan_cache_size:
-                    self._plan_cache.popitem(last=False)
+            plan = self._plan_local(q, seed_mode)
+            if self._axes is not None:
+                plan = self._axes.broadcast_object(plan)
             return plan
+
+    def _plan_local(self, q, seed_mode: Optional[str]) -> P.Plan:
+        stats = self.current_stats()
+        qkey = self._query_key(q)
+        key = None if qkey is None else (qkey, seed_mode)
+        if key is not None and key in self._plan_cache:
+            self._plan_cache.move_to_end(key)
+            return self._plan_cache[key]
+        pools = self._placement_pools()
+        plan = self._plan_uncached(
+            q, stats, pools,
+            self.residency if pools is not None else None,
+            seed_mode=seed_mode)
+        if key is not None and self._plan_cache_size:
+            self._plan_cache[key] = plan
+            while len(self._plan_cache) > self._plan_cache_size:
+                self._plan_cache.popitem(last=False)
+        return plan
 
     def plan_for_pools(self, q, pool_names: Sequence[str]) -> P.Plan:
         """Re-place ``q`` restricted to ``pool_names`` — the service's

@@ -7,8 +7,9 @@ layer would call.
         --job two-hop --vertices 5000 --device cpu
 
 runs on ``cuda:0`` (raising without CUDA) unless ``--device`` names
-another device.  ``--engine distributed`` raises: the distributed
-engine's device mesh is not ported yet.
+another device.  ``--engine distributed`` runs the meshless distributed
+engine: ``--n-data`` edge shards combined on that one device, as the
+reference's CLI does.
 """
 from __future__ import annotations
 
@@ -42,15 +43,11 @@ def main(argv=None):
     ap.add_argument("--engine", choices=["auto", "local", "distributed"],
                     default="auto")
     ap.add_argument("--n-data", type=int, default=1,
-                    help="edge shards of the meshless distributed engine "
-                         "that --engine auto may pick (combined on one "
-                         "device)")
+                    help="edge shards for the distributed engine "
+                         "(meshless: combined on one device)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA device)")
     args = ap.parse_args(argv)
-    if args.engine == "distributed":
-        raise NotImplementedError("ROADMAP §1 item 12: the distributed "
-                                  "engine's device mesh is not ported yet")
     dev = resolve_device(args.device)
 
     n = args.vertices

@@ -1072,3 +1072,37 @@ def test_flash_at_the_family_prefill_shapes(b, hq, hkv, s, d, kw):
     want = mha_plain(q, k, v, **kw)
     assert got.dtype == torch.bfloat16
     assert rel_err(got, want) <= REL_TOL[torch.bfloat16]
+
+
+def test_nccl_mesh_of_one_card_matches_the_local_engine(tmp_path):
+    """A 1 x 1 NCCL ``DeviceMesh``: ``DistributedEngine(coo, mesh=...)``
+    and ``GraphPlatform(coo, mesh=...)`` return LocalEngine's bytes on
+    the card and launch no kernel (the mesh path is dense, as the
+    reference's)."""
+    from repro_torch.core.engines import DistributedEngine
+    from repro_torch.launch import mesh as M
+    g = _graph("cuda")
+    queries = (("connected_components", {}), ("bfs", {"sources": (0, 1500)}),
+               ("sssp", {"source": 11}), ("k_core", {"k": 3}))
+    local = LocalEngine(g)
+    want = [local.run(a, p) for a, p in queries]
+    mods = (ops, iops, cops, fops)
+    mesh = M.make_mesh((1, 1), device_type="cuda",
+                       init_method=f"file://{tmp_path / 'rdv'}",
+                       world_size=1, rank=0, timeout_s=60)
+    try:
+        before = [m.KERNEL_LAUNCHES for m in mods]
+        eng = DistributedEngine(g, mesh=mesh)
+        plat = GraphPlatform(g, mesh=mesh, force_engine="distributed")
+        assert eng.device.type == "cuda" and eng.sharded.coord == (0, 0)
+        for (a, p), w in zip(queries, want):
+            got = eng.run(a, p)
+            assert torch.equal(got.value.view(torch.uint8),
+                               w.value.view(torch.uint8)), a
+            assert got.iterations == w.iterations, a
+        got = plat.query(GraphQuery.connected_components())
+        assert got.engine == "distributed"
+        assert torch.equal(got.value, want[0].value)
+        assert [m.KERNEL_LAUNCHES for m in mods] == before
+    finally:
+        torch.distributed.destroy_process_group()

@@ -256,9 +256,14 @@ def test_run_graph_cli_jobs(job):
 
 
 def test_run_graph_refuses_the_distributed_engine():
+    """``--engine distributed`` once raised here, where the reference's
+    CLI runs it (ROADMAP §3, a fault of the port): it now runs the
+    meshless distributed engine over ``--n-data`` shards."""
     from repro_torch.launch import run_graph
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_graph.main(["--engine", "distributed", "--device", "cpu"])
+    r = run_graph.main(["--engine", "distributed", "--n-data", "3",
+                        "--vertices", "500", "--device", "cpu"])
+    assert r.engine == "distributed" and r.meta["plan"].engine == \
+        "distributed"
 
 
 def test_manifest_json_written_by_the_port_is_plain_json(tmp_path):

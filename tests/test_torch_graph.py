@@ -130,10 +130,23 @@ def test_partition_1d_bytes(gname, n_data):
 
 
 def test_partition_2d_waits_for_the_mesh_path():
+    """The 2-D vertex-cut is the reference's byte for byte, and only a
+    mesh runs it (the mesh path itself: tests/test_torch_mesh.py)."""
+    from repro.core.partition import partition_2d as j_partition_2d
+    from repro_torch.core.pregel import converged_halt, PregelSpec, run_pregel
     s, d, n = _follow()
     g = TG.build_coo(s, d, n, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition(g, 2, 2)
+    t = partition(g, 2, 2)
+    j = j_partition_2d(JG.build_coo(s, d, n), 2, 2)
+    for a, b in ((j.src, t.src), (j.dst, t.dst), (j.w, t.w)):
+        assert _bits(a) == _bits(b)
+    assert (j.e_shard, j.v_local, j.n_pad, j.vertex_layout) == \
+        (t.e_shard, t.v_local, t.n_pad, "sharded")
+    spec = PregelSpec(message=lambda x, w: x, combine="min",
+                      apply=lambda old, agg, ids, gv: torch.minimum(old, agg),
+                      identity=2**31 - 1, halt=converged_halt)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        run_pregel(spec, t, torch.arange(t.n_pad, dtype=torch.int32), 3)
 
 
 @pytest.mark.parametrize("gname", sorted(GRAPHS))

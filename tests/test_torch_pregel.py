@@ -34,7 +34,7 @@ from repro_torch.core import planner as TP  # noqa: E402
 from repro_torch.core import pregel  # noqa: E402
 from repro_torch.core import registry as R  # noqa: E402
 from repro_torch.core.engines import DistributedEngine, LocalEngine  # noqa: E402
-from repro_torch.core.partition import partition_1d  # noqa: E402
+from repro_torch.core.partition import partition, partition_1d  # noqa: E402
 
 # the algorithms packages re-export functions under their modules' names,
 # so the modules are looked up by their full names
@@ -190,13 +190,30 @@ def test_halt_none_runs_exactly_max_iters():
     assert it == 7
 
 
+class _StubMesh:
+    """The attributes of a DeviceMesh the engine reads at construction."""
+
+    mesh_dim_names = ("data", "model")
+    device_type = "cpu"
+
+    def __init__(self, shape):
+        self.mesh = torch.arange(int(np.prod(shape))).reshape(shape)
+
+
 def test_mesh_path_is_not_ported_yet():
+    """The mesh path is ported (it runs in tests/test_torch_mesh.py on a
+    gloo world): a DistributedEngine takes its shard counts from the
+    mesh's axes, the 2-D layout only when asked for ``n_model > 1``, and
+    a meshless run of a vertex-sharded layout is refused."""
     _, tg = _pair("random")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pregel.run_pregel(ttr._BFS_SPEC, partition_1d(tg, 1),
-                          torch.zeros(tg.n_vertices), 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedEngine(tg, mesh=object(), device=CPU)
+    eng = DistributedEngine(tg, mesh=_StubMesh((4, 2)), n_model=2)
+    assert (eng.n_data, eng.n_model, eng.device.type) == (4, 2, "cpu")
+    eng = DistributedEngine(tg, mesh=_StubMesh((4, 2)), n_data=7)
+    assert (eng.n_data, eng.n_model) == (4, 1)
+    assert not eng.superstep_supported(ttr._BFS_SPEC, "fused")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        pregel.run_pregel(ttr._BFS_SPEC, partition(tg, 2, 2),
+                          torch.zeros(2 * (-(-tg.n_vertices // 2))), 2)
 
 
 # -------------------------------------------------- engine variant matrix
