@@ -17,9 +17,11 @@ OLMoE, Hymba, xLSTM, Whisper and PaliGemma serving through
 and checks the answers against host oracles (scipy, numpy), the plain
 versions on the card and float32 models; then the distributed engine on
 a device mesh (a 1 x 1 NCCL mesh in this process, a 2 x 2 gloo mesh of
-four processes on the one card).  Phases, in the order they run (7 runs
-between 5 and 6, 10 between 7's service fusion and the rest of 7); any
-failure exits non-zero and prints no result line:
+four processes on the one card), and the LM on a device mesh (a 1 x 1
+NCCL mesh in this process, a 2 x 2 gloo mesh of four processes).
+Phases, in the order they run (7 runs between 5 and 6, 10 between 7's
+service fusion and the rest of 7); any failure exits non-zero and prints
+no result line:
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -63,7 +65,7 @@ failure exits non-zero and prints no result line:
               boolean band mask over k and v repeated to the query heads;
               none applies a softcap)
   3. engine   on the V = 2^20 identifier graph through ``LocalEngine.run``:
-              CC, BFS (4 sources) and SSSP (each to 4096 supersteps) and
+              CC, BFS (4 sources) and SSSP (each to 2048 supersteps) and
               k-core
               (k = 4) with variant
               dense, fused and frontier, and fused once more with
@@ -145,8 +147,8 @@ failure exits non-zero and prints no result line:
               Then SmolLM-360M at full width through three
               ``python -m repro_torch.launch.train`` processes at once
               (deterministic kernels, checkpoints under ``build/``,
-              deleted after): uninterrupted, failing at step 5 and
-              restarted from its step-4 checkpoint, and with int8
+              deleted after), 32 steps: uninterrupted, failing at step
+              25 and restarted from its step-20 checkpoint, and with int8
               gradient compression; the restarted run's final state files
               equal the uninterrupted run's byte for byte, and every run's
               loss falls
@@ -174,7 +176,7 @@ failure exits non-zero and prints no result line:
               (bf16 activations over float32 masters from seed 0, freed
               before the next), each through ``greedy_generate`` with 2
               prompts and 16 generated tokens: OLMoE-1B-7B (2048 tokens),
-              Hymba-1.5B (4096, past its 1024 window), xLSTM-125M (2048),
+              Hymba-1.5B (2048, past its 1024 window), xLSTM-125M (512),
               Whisper-large-v3 (1500 audio frames, 224 tokens) and
               PaliGemma-3B (256 patches, 512 tokens); flash_attention
               launched once per layer in the OLMoE and Hymba prefills and
@@ -196,6 +198,34 @@ failure exits non-zero and prints no result line:
               reference's 2e-3, where one position late must show;
               prefill and decode times, tokens/s, peak memory, flash's
               device time in the prefill
+ 11. lm mesh  (after 9) the LM on a ``DeviceMesh``: (a) a 1 x 1 NCCL mesh
+              in this process at full width and depth: Gemma-2 2B served
+              with the params placed by ``param_spec`` and the cache by
+              ``cache_spec`` (phase 6's first request: the same greedy
+              tokens, the last logits within phase 6's limits, 26 flash
+              launches a prefill and none a decode step), and two train
+              steps with ``dp_spec``, ``grad_spec = param_spec()`` and the
+              state laid out by ``state_spec`` against phase 8's first
+              two (the loss within its noises, grad_norm within 1e-2, the
+              masters within 0.1 lr), with a planted fault (gradients
+              halved) that must break a limit; ms a prefill, a decode
+              step and a train step beside the meshless ones.  (b) four
+              processes (``chip_smoke.py --lm-mesh-rank R``) on a 2 x 2
+              gloo mesh on the one card: Gemma-2 2B at full width, 4
+              layers, FSDP, 2 steps of 4 x 1024 at microbatches 1 (and
+              1 at 2) against rank 0's meshless steps on the same weights
+              and batches, then a step with a planted fault (each
+              gradient block reduced twice); SmolLM-360M (2 layers)
+              checkpointed from the (2, 2) state and restored onto (4, 1)
+              and onto no mesh, byte-equal;
+              Granite-8B at full width, 2 layers, a ring prefill of 2 x
+              8192 over "model" against each rank's meshless chunked
+              prefill (last logits and the last layer's k cache by halves
+              of the sequence, within twice the bf16 run's distance from
+              float32), with a planted fault (the ring without its query
+              offset) that must break the second half alone; no kernel
+              launched; peaks a rank.  Every process group has a 300 s
+              timeout
 
 Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
 ``OrientedELL``, and over one built from the same edges under the
@@ -234,9 +264,10 @@ BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
 # superstep bounds of phase 3's BFS and SSSP (uncapped they run 14,528 and
 # 67,651 supersteps on the ring lattice, SSSP 141 s over its five runs);
 # every variant still runs the same supersteps and is compared byte for
-# byte.  4096 each (SSSP was 8192, BFS uncapped, until phase 10 came)
-PHASE3_BFS_ITERS = 4096
-PHASE3_SSSP_ITERS = 4096
+# byte.  2048 each (4096 until phase 11 came; SSSP 8192 and BFS uncapped
+# until phase 10)
+PHASE3_BFS_ITERS = 2048
+PHASE3_SSSP_ITERS = 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
@@ -253,8 +284,14 @@ TWO_HOP_USERS_LOG2 = 20    # the safety graph: 2^20 users,
 TWO_HOP_IDS_LOG2 = 18      # 2^18 identifiers,
 TWO_HOP_CAP = 48           # hubs of 48 users, MaxAdjacentNodes 48
 SLICE_LOG2V = 22           # label propagation and HITS graphs
-LPA_CPU_ITERS = 5          # supersteps of the card-vs-CPU LPA check
+LPA_CPU_ITERS = 2          # supersteps of the card-vs-CPU LPA check
+                           # (5, 25-29 s on the CPU, until phase 11 came)
 HITS_ATOL = 1e-4           # tests/test_hits.py's tolerance
+# phase 7's HITS at 2^22 and its float64 oracle stop at this many
+# supersteps (they ran to convergence, 42, until phase 11 came; the
+# oracle then took 86-137 s of the card host's time): both follow the
+# same schedule, so the check compares the same iterate
+HITS_MAX_ITERS = 20
 HITS_REL_L2 = 1e-2         # relative L2 distance to the float64 oracle
 TIMING_REPS = 10
 CALLS_PER_SAMPLE = 10
@@ -304,8 +341,8 @@ def cuda_ms(fn, reps=TIMING_REPS, calls=CALLS_PER_SAMPLE, warmup=3):
 def bits_equal(a, b) -> bool:
     import torch
     return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
 
 
 def max_abs_err(a, b) -> float:
@@ -1621,6 +1658,8 @@ def serve_phase():
 
     for i, (row, (batch, s, g)) in enumerate(zip(rows, reqs)):
         tokens = row.pop("tokens")
+        if i == 0:
+            first_tokens = tokens           # phase 11 serves them again
         # prefill alone, the kernel's launches timed inside it
         torch.cuda.synchronize()
         before = launch_counts()
@@ -1743,7 +1782,12 @@ def serve_phase():
     del model, plain, f32
     torch.cuda.empty_cache()
     log(f"serve: phase 6 took {time.perf_counter() - t_phase:.1f} s")
-    return path_counts, rows
+    # what phase 11 holds its mesh run to: the first request, its tokens,
+    # the plain and float32 logits and the times
+    ref = {"request": reqs[0], "tokens": first_tokens, "refs": refs,
+           "prefill_ms": rows[0]["prefill_ms"],
+           "decode_ms_per_step": rows[0]["decode_ms_per_step"]}
+    return path_counts, rows, ref
 
 
 def _param_tree(params):
@@ -1986,27 +2030,54 @@ def lpa_phase(g20):
     return row
 
 
+def hits_oracle(src, dst, V: int, max_iters: int = 50, tol: float = 1e-6):
+    """``hits_reference``'s schedule (simultaneous updates, each half
+    renormalised, the tol test each superstep) in float64 over the same
+    distinct (src, dst) pairs, its products by scipy's sparse matrices:
+    the numpy oracle's bincounts took 86-137 s at 2^22 on the card's
+    host."""
+    import numpy as np
+    import scipy.sparse as sp
+    key = np.unique(src.astype(np.int64) * V + dst)
+    A = sp.csr_matrix((np.ones(key.size), (key // V, key % V)), shape=(V, V))
+    AT = A.T.tocsr()
+
+    def unit(x):
+        return x / max(np.linalg.norm(x), 1e-12)
+    h = np.full(V, 1.0 / np.sqrt(max(V, 1)))
+    a = h.copy()
+    iters = 0
+    while iters < max_iters:
+        nh, na = unit(A @ a), unit(AT @ h)
+        iters += 1
+        converged = (np.max(np.abs(nh - h), initial=0.0) < tol
+                     and np.max(np.abs(na - a), initial=0.0) < tol)
+        h, a = nh, na
+        if converged:
+            break
+    return {"hubs": h.astype(np.float32),
+            "authorities": a.astype(np.float32)}, iters
+
+
 def hits_phase():
     """HITS through ``GraphPlatform`` on the user-follow graph at
-    2^SLICE_LOG2V (mean degree 8) against ``hits_reference`` (float64,
-    numpy) within HITS_ATOL, as ``tests/test_hits.py`` holds it, and the
+    2^SLICE_LOG2V (mean degree 8) against ``hits_oracle`` (float64)
+    within HITS_ATOL, as ``tests/test_hits.py`` holds it, and the
     relative L2 distance of each score vector within HITS_REL_L2."""
-    import importlib
-
     import numpy as np
     from repro_torch.core import graph as G
     from repro_torch.core.query import GraphPlatform, GraphQuery
     from repro_torch.data import synthetic
-    H = importlib.import_module("repro_torch.core.algorithms.hits")
     V = 2 ** SLICE_LOG2V
     t0 = time.perf_counter()
     src, dst = synthetic.user_follow_graph(V, 8.0, seed=5)
     coo = G.build_coo(src, dst, V)
     build_s = time.perf_counter() - t0
     plat = GraphPlatform(coo)
-    r, ms = _timed(lambda: plat.query(GraphQuery.of("hits")))
+    r, ms = _timed(lambda: plat.query(GraphQuery.of(
+        "hits", max_iters=HITS_MAX_ITERS)))
     t0 = time.perf_counter()
-    want, want_iters = H.hits_reference(src, dst, V)
+    want, want_iters = hits_oracle(src, dst, V, max_iters=HITS_MAX_ITERS)
     oracle_s = time.perf_counter() - t0
     errs = {}
     for k in ("hubs", "authorities"):
@@ -2475,18 +2546,19 @@ MB_GNORM_RTOL = 1e-2
 MB_UPDATE_TOL = 0.1
 BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 # the restart path: SmolLM-360M at full width through launch/train.py,
-# uninterrupted, failing at step 45 (checkpoints every 36 steps), and with
+# uninterrupted, failing at step 25 (checkpoints every 20 steps), and with
 # int8 gradient compression.  From random weights on SyntheticTokens
 # (uniform over 49,152 tokens) its loss falls slowly, against a spread of
 # a few 1e-2 from step to step: at a peak lr of 3e-4 or more it rose for
 # stretches before it fell, at 1e-4 it fell steadily.  So the runs take
-# 1e-4 and 60 steps of 4096 tokens, and the check compares the means of
-# the first and the last RESTART_LOSS_WINDOW steps.
+# 1e-4 and 32 steps of 4096 tokens (60, failing at 45 after a checkpoint
+# at 36, until phase 11 came), and the check compares the means of the
+# first and the last RESTART_LOSS_WINDOW steps.
 RESTART_ARCH = "smollm-360m"
-RESTART_ARGS = ("--steps", "60", "--batch", "8", "--seq", "512",
+RESTART_ARGS = ("--steps", "32", "--batch", "8", "--seq", "512",
                 "--lr", "1e-4", "--log-every", "1", "--seed", "0",
                 "--deterministic")
-RESTART_FAIL_AT, RESTART_CKPT_EVERY = 45, 36
+RESTART_FAIL_AT, RESTART_CKPT_EVERY = 25, 20
 RESTART_LOSS_WINDOW = 5
 
 
@@ -2698,7 +2770,6 @@ def train_phase(card):
         del model, state
         gc.collect()
         torch.cuda.empty_cache()
-    del master1
     if mb["mb2"]["rejected"]:
         fail(f"train: microbatches=2 disagrees with 1: {mb}")
     if not mb["fault: second microbatch dropped"]["rejected"]:
@@ -2725,7 +2796,12 @@ def train_phase(card):
            "loss_check": loss_check, "microbatches": mb}
     log("train " + json.dumps(row))
     log(f"train: phase 8(a) took {time.perf_counter() - t_phase:.1f} s")
-    return counts, row
+    # what phase 11 holds its mesh steps to (the masters after step 0 on
+    # the host)
+    ref = {"opt_cfg": opt_cfg, "batches": batches, "metrics": metrics,
+           "master1": master1, "noise": noise,
+           "step_ms": [w * 1e3 for w in walls]}
+    return counts, row, ref
 
 
 def _train_cli(root, *extra):
@@ -2831,14 +2907,15 @@ def restart_phase(card):
 # --------------------------------------------------------------- phase 9
 
 # (arch, prompts, prompt tokens, generated tokens, decode-check prompt):
-# Hymba's 4096 tokens are past its 1024-token window, so its local layers
-# really mask; Whisper's prompt is 224 decoder tokens beside its 1500
+# Hymba's 2048 tokens are past its 1024-token window, so its local layers
+# really mask (Hymba's 4096 and xLSTM's 2048 were cut to 2048 and 512
+# when phase 11 came, to keep the run under 1000 s); Whisper's prompt is 224 decoder tokens beside its 1500
 # audio frames, PaliGemma's 512 text tokens after its 256 patches.  The
 # decode check runs 2 prompts of the last length (xLSTM's shorter: its
 # time loop runs a step at a time)
 FAMILY_RUNS = (("olmoe-1b-7b", 2, 2048, 16, 2048),
-               ("hymba-1.5b", 2, 4096, 16, 4096),
-               ("xlstm-125m", 2, 2048, 16, 512),
+               ("hymba-1.5b", 2, 2048, 16, 2048),
+               ("xlstm-125m", 2, 512, 16, 512),
                ("whisper-large-v3", 2, 224, 16, 224),
                ("paligemma-3b", 2, 512, 16, 512))
 # the reference's decode-vs-forward check raises the MoE capacity factor
@@ -2872,10 +2949,10 @@ def moe_drop_share(model, batch, cache_len: int) -> dict:
     block = moe.moe_apply_block
     tally = []
 
-    def counted(p, xt, cfg, capacity):
+    def counted(p, xt, cfg, capacity, group=None):
         keep = moe.route(p, xt, cfg, capacity)[-1]
         tally.append((int((~keep).sum()), keep.numel()))
-        return block(p, xt, cfg, capacity)
+        return block(p, xt, cfg, capacity, group)
     moe.moe_apply_block = counted
     try:
         model.prefill(batch, cache_len=cache_len)
@@ -3129,6 +3206,536 @@ def family_phase(arch, b, s, g, s_check):
                     < d32["fault_max_abs_err"]):
         fail(f"families: {arch}'s float32 decode check failed: {d32}")
     return counts, row
+
+
+# -------------------------------------------------------------- phase 11
+#
+# The LM on a device mesh.  (a) A 1 x 1 NCCL mesh in this process, at full
+# width and depth (Gemma-2 2B): serving with the params placed by
+# ``param_spec`` and the cache by ``cache_spec`` (the flash kernel on
+# every prefill layer), against phase 6's tokens and limits; two train
+# steps with ``dp_spec``, ``grad_spec = param_spec()`` and the state laid
+# out by ``state_spec``, against phase 8's meshless steps from the same
+# seed.  (b) A 2 x 2 mesh of four processes on the one card over gloo
+# (CUDA tensors handed to gloo as host copies): Gemma-2 2B at full width
+# and 4 layers with FSDP trained at microbatches 1 and 2 against one
+# rank's meshless steps; a checkpoint written from a (2, 2) state and
+# restored onto (4, 1) and onto no mesh; Granite-8B at full width and 2
+# layers prefilling 2 x 8192 with ring attention over "model" against the
+# meshless chunked prefill.  Its times are not a multi-card measure.
+
+LM_MESH_TIMEOUT_S = 300.0  # every process group of phase 11
+LM_MESH_NCCL_PATH = f"DenseLM serve+train {SERVE_ARCH} mesh 1x1 NCCL"
+LM_MESH_GLOO_PATH = ("DenseLM train/ring prefill mesh 2x2 gloo "
+                     "(4 ranks on one card)")
+LM_MESH_DIR = ROOT / "build" / "lm_mesh_gloo"
+LM_MESH_WORLD = 4
+LM_MESH_DEADLINE_S = 400.0
+LM_GLOO_LAYERS = 4         # depth cut: full width, 4 layers
+LM_GLOO_BATCH, LM_GLOO_SEQ = 4, 1024
+LM_GLOO_STEPS = 2
+# (microbatches, steps) of (b)'s mesh runs; microbatches=2 one step (a
+# second one, 19 s over gloo, went when the run neared its time limit)
+LM_GLOO_RUNS = ((1, LM_GLOO_STEPS), (2, 1))
+LM_CKPT_ARCH, LM_CKPT_LAYERS = "smollm-360m", 2
+LM_RING_ARCH = "granite-8b"
+LM_RING_LAYERS = 2         # depth cut: full width, 2 layers (4 took 2 x
+                           # 18 s over gloo)
+LM_RING_BATCH, LM_RING_SEQ = 2, 8192
+# (b)'s train steps against rank 0's meshless ones: grad_norm within
+# MB_GNORM_RTOL, the masters within MB_UPDATE_TOL (phase 8's microbatch
+# limits), and at microbatches=1 the loss within a relative
+# LM_LOSS_RTOL (the same bf16 forward over the rows split two ways)
+LM_LOSS_RTOL = 1e-3
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def train_rejects(m, ref, noise) -> bool:
+    """Phase 8's limits on a step against its meshless twin from the
+    same state: the loss within TRAIN_NOISE_FACTOR noises, grad_norm
+    within MB_GNORM_RTOL."""
+    return not (abs(m["loss"] - ref["loss"]) <= TRAIN_NOISE_FACTOR * noise
+                and _rel(m["grad_norm"], ref["grad_norm"]) <= MB_GNORM_RTOL)
+
+
+def lm_mesh_nccl_phase(serve_ref, train_ref):
+    """Phase 11(a)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.serve_step import greedy_generate
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, state_spec)
+    from repro_torch.utils import sharding as SH
+    t_phase = time.perf_counter()
+    rdv = ROOT / "build" / "lm_mesh_nccl_rdv"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    mesh = M.make_mesh((1, 1), device_type="cuda",
+                       init_method=f"file://{rdv}", world_size=1, rank=0,
+                       timeout_s=LM_MESH_TIMEOUT_S)
+    # serving: the path, every count 0 just before and read just after
+    model = serve.build(SERVE_ARCH, attn_impl="flash", seed=0).to_mesh(mesh)
+    cfg = model.cfg
+    batch, s, g = serve_ref["request"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(model, batch, steps=g, cache_len=s + g)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    if counts["flash_attention"] != cfg.n_layers or \
+            sum(counts.values()) != cfg.n_layers:
+        fail(f"lm mesh: one generate launched {counts}, not one flash "
+             f"launch per layer ({cfg.n_layers})")
+    if not torch.equal(tokens, serve_ref["tokens"]):
+        fail("lm mesh: the 1x1 mesh's greedy tokens differ from phase 6's")
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, cache_len=s + g)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = launched_since(before)
+    tok = _argmax_tokens(logits)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    for j in range(g - 1):
+        lg, cache = model.decode_step(tok, cache, s + j)
+        tok = _argmax_tokens(lg)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (g - 1)
+    dec = launched_since(before)
+    acc = serve_accuracy(logits, *serve_ref["refs"])
+    serve_row = {"batch": batch["tokens"].shape[0], "prompt": s,
+                 "generated": g, "generate_wall_ms": gen_ms,
+                 "prefill_ms": prefill_ms,
+                 "prefill_ms_meshless": serve_ref["prefill_ms"],
+                 "decode_ms_per_step": step_ms,
+                 "decode_ms_per_step_meshless":
+                     serve_ref["decode_ms_per_step"],
+                 "flash_launches_per_prefill": pre["flash_attention"],
+                 "launches_per_decode_steps": sum(dec.values()),
+                 "tokens_equal_phase6": True,
+                 "max_memory_allocated_gb":
+                     torch.cuda.max_memory_allocated() / 1e9, **acc}
+    log("lm mesh serve " + json.dumps(serve_row))
+    if pre["flash_attention"] != cfg.n_layers or sum(dec.values()):
+        fail(f"lm mesh: prefill launched {pre}, decode steps {dec}")
+    if serve_rejects(acc):
+        fail(f"lm mesh: the 1x1 mesh's logits are out of phase 6's limits: "
+             f"{acc}")
+    del model, cache, logits, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: phase 8's first steps on the mesh, from the same seed
+    tcfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TRAIN_SEED)
+    model = DenseLM(tcfg, device="cuda", generator=gen).to_mesh(mesh)
+    state = init_train_state(model)
+    SH.tree_specs(state_spec(model), state)     # laid out by state_spec
+    step = make_train_step(model, train_ref["opt_cfg"], dp_spec="data",
+                           grad_spec=model.param_spec())
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = [], []
+    for i, b in enumerate(train_ref["batches"][:2]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if i == 0:
+            mean_d, max_d = master_distance(state.opt["master"],
+                                            train_ref["master1"], m["lr"])
+    peak = torch.cuda.max_memory_allocated()
+    refs = train_ref["metrics"]
+    noise = train_ref["noise"]
+    sound = [train_rejects(m, r, noise) for m, r in zip(metrics, refs)]
+    # a planted fault: the gradients divided by a data size of 2 on this
+    # data axis of 1 (step 2, against phase 8's step 2)
+    orig = SH.reduce_to
+    SH.reduce_to = lambda *a: orig(*a) * 0.5
+    try:
+        state, m = step(state, train_ref["batches"][2])
+    finally:
+        SH.reduce_to = orig
+    fault = {k: float(v) for k, v in m.items()}
+    train_row = {
+        "arch": tcfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "step_ms": [w * 1e3 for w in walls],
+        "step_ms_meshless": train_ref["step_ms"][:2],
+        "losses": [m["loss"] for m in metrics],
+        "losses_meshless": [r["loss"] for r in refs[:2]],
+        "grad_norms": [m["grad_norm"] for m in metrics],
+        "grad_norms_meshless": [r["grad_norm"] for r in refs[:2]],
+        "loss_noise": noise,
+        "master_mean_abs_diff_over_lr": mean_d,
+        "master_max_abs_diff_over_lr": max_d,
+        "max_memory_allocated_gb": peak / 1e9,
+        "fault": {"fault": "gradients divided by a data size of 2",
+                  "grad_norm": fault["grad_norm"],
+                  "grad_norm_meshless": refs[2]["grad_norm"],
+                  "rejected": train_rejects(fault, refs[2], noise)}}
+    log("lm mesh train " + json.dumps(train_row))
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    if any(sound) or mean_d > MB_UPDATE_TOL:
+        fail(f"lm mesh: the 1x1 mesh's train steps are off phase 8's: "
+             f"{train_row}")
+    if not train_row["fault"]["rejected"]:
+        fail(f"lm mesh: the train limits cannot see a planted fault: "
+             f"{train_row['fault']}")
+    return ({"serve": serve_row, "train": train_row,
+             "phase_s": time.perf_counter() - t_phase}, counts)
+
+
+def _gathered_distance(tree, spec_tree, mesh, ref, lr, dev):
+    """Mean and max |leaf - ref leaf| / lr over every element of a tree
+    of blocks, gathered one leaf at a time (``ref``: host leaves by name,
+    or None on the ranks that do not compare)."""
+    from repro_torch.utils import sharding as SH
+    from repro_torch.utils.tree import flatten_with_paths
+    tot, n, top = 0.0, 0, 0.0
+    for (name, leaf), sp in zip(flatten_with_paths(tree),
+                                SH.tree_specs(spec_tree, tree)):
+        full = SH.gather(leaf, sp, mesh)
+        if ref is not None:
+            d = (full.float() - ref[name].to(dev)).abs_().div_(lr)
+            tot += float(d.double().sum())
+            n += d.numel()
+            top = max(top, float(d.max()))
+        del full
+    return (tot / n, top) if ref is not None else (None, None)
+
+
+def _halves(got, want, noise_of):
+    """Max |got - want| over each half of the sequence (dim 1), and the
+    same of the noise pair ``noise_of``."""
+    s = got.shape[1] // 2
+    return [{"err": max_abs_err(got[:, h], want[:, h]),
+             "noise": max_abs_err(*(t[:, h] for t in noise_of))}
+            for h in (slice(0, s), slice(s, None))]
+
+
+def lm_mesh_gloo_rank(rank: int) -> int:
+    """One rank of phase 11(b) (``chip_smoke.py --lm-mesh-rank R``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, state_spec)
+    from repro_torch.utils import sharding as SH
+    from repro_torch.utils.tree import flatten_with_paths
+    mesh = M.make_mesh((2, 2), device_type="cuda", backend="gloo",
+                       init_method="file://" + str(LM_MESH_DIR / "rdv"),
+                       world_size=LM_MESH_WORLD, rank=rank,
+                       timeout_s=LM_MESH_TIMEOUT_S)
+    m41 = M.make_mesh((4, 1), device_type="cuda", backend="gloo",
+                      timeout_s=LM_MESH_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    d = SH.mesh_coords(mesh)["data"]
+    meta = {"rank": rank, "coordinate": list(mesh.get_coordinate()),
+            "device": str(dev), "peak_gb": {}}
+    t_rank = time.perf_counter()
+
+    def peak(tag):
+        torch.cuda.synchronize()
+        meta["peak_gb"][tag] = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # 1. train: Gemma-2 2B at full width, LM_GLOO_LAYERS layers, FSDP
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=LM_GLOO_LAYERS,
+                              fsdp=True)
+    opt_cfg = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0)
+    data = SyntheticTokens(cfg.vocab_size, LM_GLOO_SEQ, LM_GLOO_BATCH,
+                           seed=TRAIN_SEED)
+    # LM_GLOO_STEPS sound steps, then one with a planted fault
+    batches = [masked_batch(data, i, TRAIN_SEED)
+               for i in range(LM_GLOO_STEPS + 1)]
+
+    def fresh(on_mesh):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_SEED)
+        model = DenseLM(cfg, device=dev, generator=gen)
+        if on_mesh:
+            model.to_mesh(mesh)
+        return model, init_train_state(model)
+
+    def run(step, state, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        return state, m, (time.perf_counter() - t0) * 1e3
+
+    ref_masters = None
+    if rank == 0:       # the meshless steps on the same weights and batches
+        model, state = fresh(False)
+        step = make_train_step(model, opt_cfg)
+        meta["meshless"], meta["meshless_step_ms"], ref_masters = [], [], []
+        for b in batches:
+            state, m, ms = run(step, state, b)
+            meta["meshless"].append(m)
+            meta["meshless_step_ms"].append(ms)
+            ref_masters.append({n: x.cpu() for n, x in
+                                flatten_with_paths(state.opt["master"])})
+        del model, state, step
+        peak("meshless train")
+    # a planted fault: each gradient block reduced over the data axis twice
+    orig = SH.reduce_to
+
+    def twice(x, spec, mesh_, batch_axes):
+        y = orig(x, spec, mesh_, batch_axes)
+        for a in batch_axes:
+            y = SH.all_reduce(y, mesh_.get_group(a))
+        return y
+    meta["train"] = {}
+    for mb, n in LM_GLOO_RUNS:
+        model, state = fresh(True)
+        step = make_train_step(model, opt_cfg, microbatches=mb,
+                               dp_spec="data", grad_spec=model.param_spec())
+        metrics, walls = [], []
+        for b in batches[:n]:
+            state, m, ms = run(step, state, b)
+            metrics.append(m)
+            walls.append(ms)
+        mean_d, max_d = _gathered_distance(
+            state.opt["master"], state_spec(model).opt["master"], mesh,
+            None if ref_masters is None else ref_masters[n - 1],
+            opt_cfg.peak_lr, dev)
+        meta["train"][f"mb{mb}"] = {
+            "metrics": metrics, "step_ms": walls,
+            "master_mean_abs_diff_over_lr": mean_d,
+            "master_max_abs_diff_over_lr": max_d}
+        if mb == 1:     # the fault on the next step, from the same state
+            SH.reduce_to = twice
+            try:
+                state, meta["fault_train"], _ = run(step, state, batches[n])
+            finally:
+                SH.reduce_to = orig
+        del model, state, step
+        peak(f"train mb{mb}")
+    del ref_masters
+
+    # 2. a checkpoint written from a (2, 2) state, restored onto (4, 1)
+    # and onto no mesh
+    ccfg = dataclasses.replace(get_config(LM_CKPT_ARCH),
+                               n_layers=LM_CKPT_LAYERS, fsdp=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    model = DenseLM(ccfg, device=dev, generator=gen).to_mesh(mesh)
+    state = init_train_state(model)
+    cdata = SyntheticTokens(ccfg.vocab_size, LM_GLOO_SEQ, LM_GLOO_BATCH,
+                            seed=TRAIN_SEED)
+    state, _ = make_train_step(model, opt_cfg, dp_spec="data",
+                               grad_spec=model.param_spec())(
+        state, masked_batch(cdata, 0, TRAIN_SEED))
+    sspec = state_spec(model)
+    root = str(LM_MESH_DIR / "ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(root, 1, state, shardings=(sspec, mesh))
+    meta["ckpt_save_ms"] = (time.perf_counter() - t0) * 1e3
+    on41, _ = restore_checkpoint(root, state, 1, device=dev,
+                                 shardings=(sspec, m41))
+    plain, _ = restore_checkpoint(root, state, 1, device=dev)
+    specs = SH.tree_specs(sspec, state)
+    equal41 = equal_plain = True
+    for (name, leaf), (_, l41), (_, lp), sp in zip(
+            flatten_with_paths(state), flatten_with_paths(on41),
+            flatten_with_paths(plain), specs):
+        full = SH.gather(leaf, sp, mesh)
+        equal41 &= bits_equal(SH.gather(l41, sp, m41), full)
+        equal_plain &= bits_equal(lp, full)
+    meta["ckpt"] = {"leaves": len(specs), "restored_4x1_equal": equal41,
+                    "restored_meshless_equal": equal_plain}
+    del model, state, on41, plain
+    peak("checkpoint")
+
+    # 3. Granite-8B at full width, LM_RING_LAYERS layers: a prefill of
+    # LM_RING_BATCH x LM_RING_SEQ with ring attention over "model",
+    # against the meshless chunked prefill of this rank's row (and the
+    # float32 model's, whose distance is the noise)
+    gcfg = dataclasses.replace(get_config(LM_RING_ARCH),
+                               n_layers=LM_RING_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    plain_model = DenseLM(gcfg, device=dev, generator=gen)
+    tokens = torch.from_numpy(np.random.default_rng(TRAIN_SEED).integers(
+        0, gcfg.vocab_size, (LM_RING_BATCH, LM_RING_SEQ)).astype(np.int32)
+    ).to(dev)
+    mine = {"tokens": tokens[d:d + 1]}
+    want_logits, want_cache = plain_model.prefill(mine)
+    f32 = DenseLM(dataclasses.replace(gcfg, dtype="float32"), device=dev,
+                  params=_param_tree(plain_model.params))
+    f32_logits, f32_cache = f32.prefill(mine)
+    want_k = want_cache["k"][-1].float()
+    f32_k = f32_cache["k"][-1].float()
+    del f32, f32_cache, want_cache
+    ring = DenseLM(dataclasses.replace(gcfg, attn_impl="ring"), device=dev,
+                   params=_param_tree(plain_model.params))
+    del plain_model
+    ring.ring_mesh = mesh
+    ring.to_mesh(mesh)
+    peak("ring models")
+    cspec = ring.cache_spec(multi_pod=False)["k"]
+
+    def ring_prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = ring.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # the last layer's k of this rank's row, every head
+        k = SH.gather(cache["k"], cspec, mesh)[-1, d:d + 1].float()
+        return logits[d:d + 1], k, ms
+    logits, k, ms = ring_prefill()
+    meta["ring"] = {
+        "prefill_ms": ms,
+        "logits": {"err": max_abs_err(logits, want_logits),
+                   "noise": max_abs_err(want_logits, f32_logits)},
+        "k_cache_halves": _halves(k, want_k, (want_k, f32_k))}
+    # a planted fault: the ring without the shard's query offset
+    orig_block = L._online_block
+
+    def no_offset(q, k_, v, qpos, kpos, *a, **kw):
+        return orig_block(q, k_, v, qpos - qpos[0], kpos, *a, **kw)
+    L._online_block = no_offset
+    try:
+        _, k_bad, _ = ring_prefill()
+    finally:
+        L._online_block = orig_block
+    meta["ring_fault"] = _halves(k_bad, want_k, (want_k, f32_k))
+    del ring, k, k_bad
+    peak("ring prefill")
+    meta["launches"] = launch_counts()
+    meta["rank_s"] = time.perf_counter() - t_rank
+    (LM_MESH_DIR / f"rank{rank}.json").write_text(json.dumps(meta))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def lm_mesh_gloo_phase():
+    """Phase 11(b): four ranks (``chip_smoke.py --lm-mesh-rank R``) on a
+    2 x 2 gloo mesh on this card; their checks, the planted faults that
+    must show, and their times and peaks."""
+    import os
+    import shutil
+    t_phase = time.perf_counter()
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--lm-mesh-rank", str(r)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(LM_MESH_WORLD)]
+    outs = []
+    try:
+        deadline = time.monotonic() + LM_MESH_DEADLINE_S
+        for p in procs:
+            o, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+            outs.append(o)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t_phase
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"lm mesh rank {r} exited {p.returncode}:\n{o[-3000:]}")
+    metas = [json.loads((LM_MESH_DIR / f"rank{r}.json").read_text())
+             for r in range(LM_MESH_WORLD)]
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    launches = {}
+    for meta in metas:
+        for k, c in meta["launches"].items():
+            launches[k] = launches.get(k, 0) + c
+    ref = metas[0]["meshless"]
+    noise = abs(ref[0]["loss"]) * LM_LOSS_RTOL
+    for meta in metas:
+        r = meta["rank"]
+        for tag, run in meta["train"].items():
+            if metas[0]["train"][tag]["metrics"] != run["metrics"]:
+                fail(f"lm mesh rank {r} {tag}: metrics differ from rank 0's")
+        for tag, run in metas[0]["train"].items():
+            for i, (m, want) in enumerate(zip(run["metrics"], ref)):
+                if _rel(m["grad_norm"], want["grad_norm"]) > MB_GNORM_RTOL \
+                        or (tag == "mb1" and abs(m["loss"] - want["loss"])
+                            > noise):
+                    fail(f"lm mesh {tag} step {i}: {m} against the meshless "
+                         f"{want}")
+            if run["master_mean_abs_diff_over_lr"] > MB_UPDATE_TOL:
+                fail(f"lm mesh {tag}: the masters moved off the meshless "
+                     f"ones: {run}")
+        ck = meta["ckpt"]
+        if not (ck["restored_4x1_equal"] and ck["restored_meshless_equal"]):
+            fail(f"lm mesh rank {r}: the checkpoint round trip: {ck}")
+        ring = meta["ring"]
+        halves = ring["k_cache_halves"]
+        if ring["logits"]["err"] > SERVE_NOISE_FACTOR * \
+                ring["logits"]["noise"] or any(
+                    h["err"] > SERVE_NOISE_FACTOR * h["noise"]
+                    for h in halves):
+            fail(f"lm mesh rank {r}: the ring prefill is off the meshless "
+                 f"one: {ring}")
+        first, second = meta["ring_fault"]
+        if first["err"] > SERVE_NOISE_FACTOR * first["noise"] or \
+                second["err"] <= SERVE_NOISE_FACTOR * second["noise"]:
+            fail(f"lm mesh rank {r}: the planted ring fault (no query "
+                 f"offset) does not show on the second half alone: "
+                 f"{meta['ring_fault']}")
+    fault = metas[0]["fault_train"]
+    fault_rejected = _rel(fault["grad_norm"],
+                          ref[LM_GLOO_STEPS]["grad_norm"]) > MB_GNORM_RTOL
+    if not fault_rejected:
+        fail(f"lm mesh: the train limits cannot see a planted fault "
+             f"(a block reduced twice): {fault}")
+    if launches.get("flash_attention", 0) or sum(launches.values()):
+        fail(f"lm mesh: the gloo world launched kernels: {launches}")
+    out = {"meshless_step_ms": metas[0]["meshless_step_ms"],
+           "train": metas[0]["train"],
+           "fault_train": {"fault": "each gradient block reduced over the "
+                                    "data axis twice",
+                           "step": LM_GLOO_STEPS,
+                           "grad_norm": fault["grad_norm"],
+                           "grad_norm_meshless":
+                               ref[LM_GLOO_STEPS]["grad_norm"],
+                           "rejected": fault_rejected},
+           "ckpt": metas[0]["ckpt"], "ckpt_save_ms": metas[0]["ckpt_save_ms"],
+           "ring": [m["ring"] for m in metas],
+           "ring_fault": [m["ring_fault"] for m in metas],
+           "peak_gb_by_rank": [m["peak_gb"] for m in metas],
+           "rank_s": [m["rank_s"] for m in metas], "phase_s": wall,
+           "note": "gloo on one card: a wiring check, not a multi-card "
+                   "measure"}
+    log("lm mesh gloo " + json.dumps(out))
+    return out, launches
 
 
 # ------------------------------------------------------------------ main
@@ -3388,14 +3995,14 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 7 done")
 
     # 6. LM serving (the counts are reset inside, just before the path)
-    paths[SERVE_PATH], serve_rows = serve_phase()
+    paths[SERVE_PATH], serve_rows, serve_ref = serve_phase()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 6 done")
 
     # 8. LM training (the counts are reset inside, just before the path),
     # then the restart path in processes of its own
     gc.collect()
     torch.cuda.empty_cache()
-    paths[TRAIN_PATH], train_row = train_phase(card)
+    paths[TRAIN_PATH], train_row, train_ref = train_phase(card)
     restart_row = restart_phase(card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 8 done")
 
@@ -3410,12 +4017,28 @@ def main() -> int:
         family_rows.append(row)
     log(f"families: phase 9 took {time.perf_counter() - t_phase:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 9 done")
+
+    # 11. the LM on a device mesh (the counts are reset inside, just
+    # before each mesh path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    lm_nccl, paths[LM_MESH_NCCL_PATH] = lm_mesh_nccl_phase(serve_ref,
+                                                           train_ref)
+    del serve_ref, train_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_gloo, paths[LM_MESH_GLOO_PATH] = lm_mesh_gloo_phase()
+    lm_mesh_rows = {"nccl_1x1": lm_nccl, "gloo_2x2": lm_gloo}
+    log(f"lm mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 11 done")
     must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
                 ("pregel_superstep", "ell_intersect"),
             FORCED_BATCH_PATH: ("pregel_superstep_batched",),
             f"GraphPlatform.query V=2^{MAIN_LOG2V}": ("ell_intersect",),
             f"LocalEngine._spmv V=2^{MAIN_LOG2V}": ("ell_combine",),
             SERVE_PATH: ("flash_attention",),
+            LM_MESH_NCCL_PATH: ("flash_attention",),
             family_path("olmoe-1b-7b"): ("flash_attention",),
             family_path("hymba-1.5b"): ("flash_attention",)}
     for path, names in must.items():
@@ -3461,6 +4084,7 @@ def main() -> int:
         "spmv": spmv_rows, "slice": slice_rows, "serve": serve_rows,
         "train": train_row, "restart": restart_row,
         "families": family_rows, "mesh": mesh_rows,
+        "lm_mesh": lm_mesh_rows,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3536,7 +4160,8 @@ def main() -> int:
 
 
 def mesh_worker_main(argv) -> int:
-    """``chip_smoke.py --mesh-rank R``: one rank of phase 10(b)."""
+    """``chip_smoke.py --mesh-rank R``: one rank of phase 10(b);
+    ``--lm-mesh-rank R``: one of phase 11(b)."""
     import torch
     if not torch.cuda.is_available() or \
             not (ROOT / "src" / "repro_torch").is_dir():
@@ -3544,12 +4169,17 @@ def mesh_worker_main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    return mesh_gloo_rank(int(argv[argv.index("--mesh-rank") + 1]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for flag, run in (("--mesh-rank", mesh_gloo_rank),
+                      ("--lm-mesh-rank", lm_mesh_gloo_rank)):
+        if flag in argv:
+            return run(int(argv[argv.index(flag) + 1]))
+    return 2
 
 
 if __name__ == "__main__":
     try:
-        if "--mesh-rank" in sys.argv:
+        if "--mesh-rank" in sys.argv or "--lm-mesh-rank" in sys.argv:
             sys.exit(mesh_worker_main(sys.argv))
         sys.exit(main())
     except Exception:

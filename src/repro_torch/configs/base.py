@@ -6,9 +6,11 @@ architecture lives next to this module, field for field the reference's,
 and ``get_config(name)`` resolves them (all ten architectures, six
 families).  ``reduced_config`` shrinks an architecture to a CPU-testable
 size while keeping its structure (family, GQA ratio, local/global
-pattern, ...).  The execution fields ``scan_layers``, ``fsdp`` and the
-``"ring"`` attention are the reference's and the port reads none of
-them; ``remat`` is read by the training path only.
+pattern, ...).  The execution fields are the reference's: ``fsdp`` adds
+the FSDP axes to ``param_spec``, ``"ring"`` attention runs on a device
+mesh (the model's ``ring_mesh``), ``remat`` is read by the training path
+only, and ``scan_layers`` by nothing (the port's layers always run in a
+Python loop).
 """
 from __future__ import annotations
 

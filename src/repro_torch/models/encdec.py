@@ -16,8 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import DenseLM, remat_loop
+from repro_torch.models.transformer import DenseLM, _meta, dp_axes, remat_loop
+from repro_torch.utils.sharding import P
 
 
 def _sinusoid(seq: int, d: int, device):
@@ -83,7 +85,10 @@ class EncDecLM(DenseLM):
         x = x + _sinusoid(x.shape[1], self.cfg.d_model,
                           self.device).to(self.dtype)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=self.device)
-        x = remat_loop([(self._enc_block, (p_l, pos)) for p_l in
+
+        def block(p_l, x):
+            return self._enc_block(self._slice(p_l, "enc_layers"), pos, x)
+        x = remat_loop([(block, (p_l,)) for p_l in
                         self._slices(params, "enc_layers")], x,
                        self.cfg.remat and torch.is_grad_enabled())
         return L.rms_norm(x, params["enc_norm"])
@@ -97,6 +102,12 @@ class EncDecLM(DenseLM):
             return slices
         return [dict(p_l, cross=c_l) for p_l, c_l in
                 zip(slices, super()._slices(params, "cross"))]
+
+    def _slice_spec(self, layout, group: str) -> dict:
+        spec = super()._slice_spec(layout, group)
+        if group == "layers":
+            spec["cross"] = super()._slice_spec(layout, "cross")
+        return spec
 
     def _embed_inputs(self, params, batch):
         """The decoder prompt over sinusoids, and beside it ``(positions,
@@ -172,3 +183,44 @@ class EncDecLM(DenseLM):
         super()._fill_cache(cache, i, state, s)
         cache["cross_k"][i] = state[2]
         cache["cross_v"][i] = state[3]
+
+    # ------------------------------------------------------- shardings
+    def param_spec(self) -> dict:
+        spec = super().param_spec()
+        fs = self._fsdp_ax()
+        spec["enc_layers"] = {
+            "ln1": P(None, None), "ln2": P(None, None),
+            "attn": {
+                "wq": P(None, fs, "model"), "wk": P(None, fs, "model"),
+                "wv": P(None, fs, "model"), "wo": P(None, "model", fs),
+            },
+            "mlp": {
+                "w_gate": P(None, fs, "model"),
+                "w_up": P(None, fs, "model"),
+                "w_down": P(None, "model", fs),
+            },
+        }
+        spec["cross"] = {
+            "ln": P(None, None),
+            "wq": P(None, fs, "model"), "wk": P(None, fs, "model"),
+            "wv": P(None, fs, "model"), "wo": P(None, "model", fs),
+        }
+        spec["enc_norm"] = P(None)
+        return spec
+
+    def cache_spec(self, multi_pod: bool = True) -> dict:
+        dp = dp_axes(multi_pod)
+        base = super().cache_spec(multi_pod)
+        base["cross_k"] = P(None, dp, None, None, "model")
+        base["cross_v"] = P(None, dp, None, None, "model")
+        return base
+
+    def input_specs(self, shape: ShapeSpec, multi_pod: bool = True) -> dict:
+        cfg = self.cfg
+        b = shape.global_batch
+        base = super().input_specs(shape, multi_pod)
+        if shape.kind in ("train", "prefill"):
+            base["arrays"]["audio_embeds"] = _meta(
+                (b, cfg.encoder_seq, cfg.d_model), torch.float32)
+            base["specs"]["audio_embeds"] = P(dp_axes(multi_pod), None, None)
+        return base

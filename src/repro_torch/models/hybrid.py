@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import DenseLM, dp_axes
+from repro_torch.utils.sharding import P
 
 
 class HybridLM(DenseLM):
@@ -66,3 +67,31 @@ class HybridLM(DenseLM):
         super()._fill_cache(cache, i, state, s)
         cache["ssm"][i] = state[2]
         cache["conv"][i] = state[3]
+
+    # ------------------------------------------------------- shardings
+    def _layer_spec(self, fs) -> dict:
+        s = super()._layer_spec(fs)
+        s["norm_attn"] = P(None, None)
+        s["norm_ssm"] = P(None, None)
+        s["ssm"] = {
+            "w_in": P(None, fs, "model"),
+            "conv_w": P(None, None, "model"),
+            "w_b": P(None, "model", None),
+            "w_c": P(None, "model", None),
+            "w_dt1": P(None, "model", None),
+            "w_dt2": P(None, None, "model"),
+            "dt_bias": P(None, "model"),
+            "a_log": P(None, "model", None),
+            "d_skip": P(None, "model"),
+            "w_out": P(None, "model", fs),
+        }
+        s.pop("ln1_post", None)
+        s.pop("ln2_post", None)
+        return s
+
+    def cache_spec(self, multi_pod: bool = True) -> dict:
+        dp = dp_axes(multi_pod)
+        base = super().cache_spec(multi_pod)
+        base["ssm"] = P(None, dp, "model", None)
+        base["conv"] = P(None, dp, None, "model")
+        return base

@@ -17,6 +17,9 @@ Conventions
                   torch (the reference config's default)
     - 'flash'   : the hand-written CUDA kernel (``kernels.flash_attention``)
                   on the card, its plain version on the CPU
+  and a fourth on a device mesh, ``attn_ring`` (``attn_impl="ring"`` with
+  the model's ``ring_mesh``): the sequence split over a mesh axis, the
+  k/v blocks passed round the ring (plain torch, as the reference's jnp).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.utils import sharding as SH
 
 NEG_INF = -2.3819763e38  # large negative for masking in f32
 
@@ -209,9 +213,113 @@ def attention_output(q, k, v, qpos, kpos, impl: str, causal=True, window=0,
                             use_kernels=use_kernels)
         return o.transpose(1, 2)
     if impl == "ring":
-        raise NotImplementedError("ring attention waits for the port's "
-                                  "distributed work (ROADMAP.md §1)")
+        raise ValueError("attention_output: ring attention runs on a mesh "
+                         "through attn_ring (the model's ring_mesh hook)")
     raise ValueError(impl)
+
+
+def _online_block(q, k, v, qpos, kpos, state, causal, window, softcap,
+                  prefix=0, chunk_k: int = 512):
+    """Online-softmax update of ``state`` = (m, l, acc) (float32) against
+    one kv block, ``chunk_k`` keys at a time (the reference's
+    ``_online_block``).  q [B,Hkv,G,Sq,Dh] (scaled, compute dtype); k/v
+    [B,Sk,Hkv,Dh]; m, l [B,Hkv,G,Sq,1], acc [B,Hkv,G,Sq,Dh]."""
+    sk = k.shape[1]
+    ck = _pick_chunk(sk, chunk_k)
+    m_p, l_p, acc = state
+    qf = q.float()
+    for k0 in range(0, sk, ck):
+        kb = k[:, k0:k0 + ck].permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,ck,Dh]
+        vb = v[:, k0:k0 + ck].permute(0, 2, 1, 3)[:, :, None]
+        logits = _softcap(qf @ kb.float().transpose(-1, -2), softcap)
+        msk = _expand_mask(_mask(qpos, kpos[k0:k0 + ck], causal, window,
+                                 prefix), logits.dim())
+        logits = torch.where(msk, logits, NEG_INF)
+        m_n = torch.maximum(m_p, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_n)
+        alpha = torch.exp(m_p - m_n)
+        l_p = alpha * l_p + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(vb.dtype).float() @ vb.float()
+        m_p = m_n
+    return m_p, l_p, acc
+
+
+def _ring_shift(tensors, group, axis_size: int, index: int):
+    """Each tensor of this rank to the next rank of the ring
+    (``index + 1``), the previous rank's in return: one
+    ``batch_isend_irecv`` with every send and receive posted together (a
+    send posted alone waits for its receiver, and every rank would wait)."""
+    import torch.distributed as dist
+    nxt = dist.get_global_rank(group, (index + 1) % axis_size)
+    prv = dist.get_global_rank(group, (index - 1) % axis_size)
+    sends = [SH.wire(t.contiguous(), group) for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in sends] + \
+        [dist.P2POp(dist.irecv, t, prv, group) for t in recvs]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+
+def attn_ring(q, k, v, *, mesh, axis: str = "model", batch_axes=("data",),
+              causal=True, window=0, softcap=0.0, chunk_k: int = 512):
+    """Ring attention (context parallelism), the reference's ``attn_ring``:
+    the sequence of q/k/v is split over the mesh axis ``axis``; each rank
+    keeps its chunk of the q rows, the k/v blocks travel the ring ``i ->
+    i + 1`` (``batch_isend_irecv`` on the axis's group), and each rank
+    runs an online softmax of its queries against every block in turn.
+    At stage j a rank holds the block of shard ``(m - j) mod M``, whose
+    key positions start at that shard's offset, as its queries' start at
+    ``m * S / M``; the window applies across shards.
+
+    q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh]: this rank's rows (the batch is
+    split over ``batch_axes`` before the model runs, as the reference's
+    ``shard_map`` splits it) and the whole sequence.  Returns ``[B, S,
+    Hq, Dh]`` in q's dtype, gathered back along ``axis`` (what the
+    reference's ``out_specs`` reassembles), fully masked rows zero.
+    Forward only: under autograd with an input that requires grad it
+    raises (its backward, dK and dV travelling the ring in reverse, is
+    ROADMAP.md §1 item 1)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("attn_ring is forward only (its backward is "
+                           "ROADMAP.md §1 item 1); train with "
+                           "attn_impl='chunked'")
+    if axis in tuple(batch_axes or ()):
+        raise ValueError(f"attn_ring: the ring axis {axis!r} also splits "
+                         f"the batch ({tuple(batch_axes)})")
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    M = SH.mesh_sizes(mesh)[axis]
+    m = SH.mesh_coords(mesh)[axis]
+    if s % M:
+        raise ValueError(f"attn_ring: a sequence of {s} does not split over "
+                         f"{M} ranks of {axis!r}")
+    s_loc = s // M
+    mine = slice(m * s_loc, (m + 1) * s_loc)
+    # without a causal or window mask the positions go unused, and the
+    # reference gives every query position 0
+    needs_pos = causal or window != 0
+    ar = torch.arange(s_loc, dtype=torch.int32, device=q.device)
+    qpos = m * s_loc + ar if needs_pos else torch.zeros_like(ar)
+    qf = (q[:, mine] * torch.tensor(dh ** -0.5, dtype=q.dtype)).reshape(
+        b, s_loc, hkv, g, dh).permute(0, 2, 3, 1, 4)
+    state = (torch.full((b, hkv, g, s_loc, 1), NEG_INF, device=q.device),
+             torch.zeros((b, hkv, g, s_loc, 1), device=q.device),
+             torch.zeros((b, hkv, g, s_loc, dh), device=q.device))
+    kv = [k[:, mine].contiguous(), v[:, mine].contiguous()]
+    group = mesh.get_group(axis) if M > 1 else None
+    for j in range(M):
+        src = (m - j) % M if needs_pos else (-j) % M
+        kpos = src * s_loc + ar
+        state = _online_block(qf, kv[0], kv[1], qpos, kpos, state, causal,
+                              window, softcap, chunk_k=chunk_k)
+        if j < M - 1:
+            kv = _ring_shift(kv, group, M, m)
+    _, l_f, acc = state
+    out = (acc / torch.where(l_f > 0, l_f, 1.0)).permute(0, 3, 1, 2, 4)
+    out = out.reshape(b, s_loc, hq, dh).to(q.dtype)
+    return SH.gather(out, SH.P(None, axis, None, None), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,12 @@ terms are added in another order).  An expert takes at most one choice
 of a token, so the buffer holds ``min(C, G)`` slots: slots past ``G``
 stay empty in the reference too.  ``utils/analytic.py`` still counts the
 reference's one-hot einsums (``moe_dispatch``).
+
+On a device mesh a block spans the rows of every batch rank, as the
+reference's global block does under GSPMD: its capacity is the global
+block's, each rank's slots follow the expert counts of the ranks before
+it, and the Switch fractions are summed over the ranks
+(``moe_apply_block``'s ``group``).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import DenseLM, cross_entropy, remat_loop
+from repro_torch.utils.sharding import P
 
 
 def _capacity(tokens: int, n_experts: int, top_k: int, factor: float) -> int:
@@ -64,13 +71,28 @@ def route(p, xt, cfg, capacity: int):
     return probs, gate_vals, gate_idx, onehot, pos, pos < capacity
 
 
-def moe_apply_block(p, xt, cfg, capacity: int):
-    """One token block.  xt [G, D] -> (y [G, D], aux_loss scalar)."""
+def moe_apply_block(p, xt, cfg, capacity: int, group=None):
+    """One token block.  xt [G, D] -> (y [G, D], aux_loss scalar).
+
+    ``group`` (a ``utils.sharding.BatchGroup``, on a mesh): ``xt`` is
+    this rank's segment of a block that spans every batch rank's rows, in
+    row order.  The routing stays the block's: each pair's slot counts
+    the pairs of the ranks before this one (an exclusive prefix of their
+    expert counts), so the same pairs overflow ``capacity`` (the global
+    block's); the Switch loss's fractions are over the whole block, and
+    the rank returns its share of it: ``1 / size`` of its value, and the
+    gradient of the router probabilities of its own tokens, so the
+    shares' values and gradients sum to the block's."""
     g, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xt.dtype
     probs, gate_vals, gate_idx, onehot, pos, keep = route(p, xt, cfg,
                                                           capacity)
+    counts = onehot.sum(dim=(0, 1))                              # [E]
+    if group is not None:
+        every = group.gather(counts)                             # [R, E]
+        keep = (pos + every[:group.index].sum(dim=0)[gate_idx]) < capacity
+        counts = every.sum(dim=0)
     c = min(capacity, g)
     dump = e * c                        # the row a dropped pair writes to
     slot = torch.where(keep, gate_idx * c + pos, dump).reshape(-1)  # [G*k]
@@ -100,33 +122,45 @@ def moe_apply_block(p, xt, cfg, capacity: int):
     y = (rows.float().reshape(g, k, d) * comb[..., None]).sum(dim=1).to(dt)
 
     # Switch load-balance loss: E * sum_e f_e * p_e
-    frac_tokens = onehot.sum(dim=1).float().mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    aux = e * torch.sum(frac_tokens / k * frac_probs)
-    return y, aux
+    if group is None:
+        frac_tokens = onehot.sum(dim=1).float().mean(dim=0)
+        frac_probs = probs.mean(dim=0)
+        return y, e * torch.sum(frac_tokens / k * frac_probs)
+    n = g * group.size
+    mine = probs.sum(dim=0)
+    every = group.sum(mine.detach())
+    # the block's value; a gradient through this rank's tokens only
+    frac_probs = (every - mine.detach() + mine) / n
+    aux = e * torch.sum(counts.float() / n / k * frac_probs)
+    return y, aux.detach() / group.size + (aux - aux.detach())
 
 
-def moe_apply(p, x, cfg, block_tokens: int = 1024):
+def moe_apply(p, x, cfg, block_tokens: int = 1024, group=None):
     """x [B, S, D] -> (y, aux).  Tokens run in blocks of about
     ``block_tokens`` (``S / nb`` positions of every row; one block of the
     whole sequence when S does not divide), the capacity per block, as
     in the reference.  The expert weights are cast to the compute dtype
-    once for all blocks."""
+    once for all blocks.  On a mesh (``group``) ``x`` holds this rank's
+    rows and each block spans every rank's rows: its size and capacity
+    are the global batch's (``moe_apply_block``)."""
     b, s, d = x.shape
+    b_all = b * (1 if group is None else group.size)
     g = b * s
     p = {name: w.to(x.dtype) for name, w in p.items()}
-    sb = max(1, min(s, block_tokens // max(b, 1)))
+    sb = max(1, min(s, block_tokens // max(b_all, 1)))
     nb = s // sb if s % sb == 0 else 1
     if nb <= 1:
-        cap = _capacity(g, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
-        y, aux = moe_apply_block(p, x.reshape(g, d), cfg, cap)
+        cap = _capacity(b_all * s, cfg.n_experts, cfg.top_k,
+                        cfg.capacity_factor)
+        y, aux = moe_apply_block(p, x.reshape(g, d), cfg, cap, group)
         return y.reshape(b, s, d), aux
-    cap = _capacity(b * sb, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    cap = _capacity(b_all * sb, cfg.n_experts, cfg.top_k,
+                    cfg.capacity_factor)
     xb = x.reshape(b, nb, sb, d).transpose(0, 1).reshape(nb, b * sb, d)
     ys = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(nb):
-        y, a = moe_apply_block(p, xb[i], cfg, cap)
+        y, a = moe_apply_block(p, xb[i], cfg, cap, group)
         ys.append(y)
         aux = aux + a
     y = torch.stack(ys).reshape(nb, b, sb, d).transpose(0, 1)
@@ -156,18 +190,20 @@ class MoELM(DenseLM):
         }
 
     def _ffn(self, p_l, h, pos):
-        return moe_apply(p_l["mlp"], h, self.cfg)
+        return moe_apply(p_l["mlp"], h, self.cfg, group=self._batch_group())
 
     def loss(self, batch, vocab_chunk: int = 8, params=None):
         """Cross-entropy plus ``router_aux_coef`` times the layers' mean
-        Switch loss: ``(loss, {"loss", "ce", "aux", "tokens"})``."""
+        Switch loss: ``(loss, {"loss", "ce", "aux", "tokens"})``; on a
+        mesh this rank's shares (``DenseLM.loss``)."""
         cfg = self.cfg
-        p = self.params if params is None else params
+        p = self._top(self.params if params is None else params)
+        batch, n_tokens = self._mesh_loss_args(batch)
         x, qpos = self._embed_inputs(p, batch)
 
         def block(p_l, w, carry):
             x, aux = carry
-            x, _, a = self._block_train(p_l, w, x, qpos)
+            x, _, a = self._block_train(self._slice(p_l), w, x, qpos)
             return x, aux + a
         x, aux = remat_loop(
             [(block, (p_l, w)) for p_l, w in zip(self._slices(p),
@@ -176,7 +212,29 @@ class MoELM(DenseLM):
             cfg.remat and torch.is_grad_enabled())
         ce, cnt = cross_entropy(self._head(p), x,
                                 batch["labels"].to(self.device), cfg,
-                                vocab_chunk)
+                                vocab_chunk, n_tokens)
         aux_mean = aux / cfg.n_layers
         loss = ce + cfg.router_aux_coef * aux_mean
         return loss, {"loss": loss, "ce": ce, "aux": aux_mean, "tokens": cnt}
+
+    # ------------------------------------------------------- shardings
+    def _mlp_spec(self, fs) -> dict:
+        return {"router": P(None, None, None),
+                "w_gate": P(None, "model", fs, None),
+                "w_up": P(None, "model", fs, None),
+                "w_down": P(None, "model", None, fs)}
+
+    def _layer_spec(self, fs) -> dict:
+        s = super()._layer_spec(fs)
+        s["mlp"] = self._mlp_spec(fs)
+        s.pop("ln1_post", None)
+        s.pop("ln2_post", None)
+        return s
+
+    def param_spec(self) -> dict:
+        spec = super().param_spec()
+        if self.strip_tp:
+            # strip_tp removes attention TP, but expert parallelism stays
+            # on the model axis (the experts are the point of the axis)
+            spec["layers"]["mlp"] = self._mlp_spec(self._fsdp_ax())
+        return spec

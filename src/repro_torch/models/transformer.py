@@ -25,8 +25,23 @@ final hidden states that get logits), ``init_cache`` / ``_fill_cache``.
 same weights.  Layers run in a Python loop, each with its window as an
 int; under ``cfg.remat`` the training path checkpoints each layer, as the
 reference does.  ``forward``, ``prefill`` and ``decode_step`` compute no
-gradients.  The shardings and ``input_specs`` belong to the mesh work
-(ROADMAP.md §1).
+gradients.
+
+Shardings, as the reference writes them: ``param_spec()``,
+``cache_spec(multi_pod)`` and ``input_specs(shape, multi_pod)`` give
+``utils.sharding.P`` trees equal to the reference's, under the same
+hooks (``fsdp_axes``, ``strip_tp``, ``act_spec``, ``ring_mesh``,
+``ring_batch_axes``).  ``to_mesh(mesh)`` runs the model SPMD on a
+``torch.distributed`` ``DeviceMesh`` (one process a rank): each rank
+keeps its block of every parameter (``param_spec``) and of the cache
+(``cache_spec``), and computes the rows of the batch that its batch axes
+give it (``batch_axes``, the mesh's ``("pod", "data")``); a layer's
+weights are gathered for its compute and freed after it (ZeRO-3), the
+embedding and head once a call.  Ranks that differ only along ``model``
+compute the same rows.  ``forward``, ``prefill`` and ``decode_step`` take
+and return the global batch; ``loss`` returns this rank's share (the
+shares of the batch ranks sum to the global loss and metrics).  The
+result is the meshless one, up to the order of float sums.
 """
 from __future__ import annotations
 
@@ -37,9 +52,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.utils import sharding as SH
+from repro_torch.utils.sharding import P
+from repro_torch.utils.tree import tree_map
+
+DP = ("pod", "data")   # the canonical data-parallel mesh axes (pod may be absent)
+
+
+def dp_axes(multi_pod: bool = True):
+    return DP if multi_pod else ("data",)
 
 
 def _as_parameters(tree) -> nn.ParameterDict:
@@ -78,10 +102,12 @@ def unstack(group) -> list[dict]:
     return list(group.unbind(0))
 
 
-def cross_entropy(head, x, targets, cfg, vocab_chunk: int = 8):
+def cross_entropy(head, x, targets, cfg, vocab_chunk: int = 8,
+                  n_tokens=None):
     """Next-token cross-entropy of hidden states ``x`` [B, S, D] against
     ``targets`` [B, S] (-1 = masked): ``(mean over valid tokens (float32),
-    their count (int32))``.  As in the reference, the sequence is cut into
+    their count (int32))``.  ``n_tokens`` (on a mesh: the global batch's
+    count) divides the sum in place of the count of ``targets``.  As in the reference, the sequence is cut into
     ``vocab_chunk`` chunks (one when S does not divide) and each chunk's
     float32 logits are computed inside a checkpoint, so only one chunk's
     ``[B, S / vocab_chunk, V]`` logits are ever live.  ``head`` holds the
@@ -106,7 +132,8 @@ def cross_entropy(head, x, targets, cfg, vocab_chunk: int = 8):
                                targets[:, j * n:(j + 1) * n],
                                use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + ce, cnt + valid
-    return tot / torch.clamp(cnt, min=1), cnt
+    return tot / torch.clamp(cnt if n_tokens is None else n_tokens,
+                             min=1), cnt
 
 
 def remat_loop(blocks, x, remat: bool):
@@ -150,6 +177,28 @@ class DenseLM(nn.Module):
             params = self.init_params(cfg, self.device, generator)
         _check_tree(type(self), cfg, params, type(self).__name__)
         self.params = _as_parameters(params)
+        # the reference's mesh hooks, with its defaults (a launcher sets
+        # them): the FSDP axes of ``param_spec`` when ``cfg.fsdp``;
+        # ``strip_tp`` takes "model" out of the param specs (MoE keeps
+        # its experts on it); ``act_spec`` (sequence parallelism of the
+        # residual stream) is not ported and raises on a mesh;
+        # ``ring_mesh`` turns ``attn_impl="ring"`` on, its sequence split
+        # over "model", its rows over ``ring_batch_axes``
+        self.act_spec = None
+        self.fsdp_axes = ("data",)
+        self.strip_tp = False
+        self.ring_mesh = None
+        self.ring_batch_axes = ("data",)
+        # the port's mesh state (``to_mesh``): the mesh, the axes that
+        # split a batch's rows, the spec tree the parameters are stored
+        # by, and (set by ``make_train_step``) the one gradients are
+        # reduced to
+        self.mesh = None
+        self.batch_axes = ()
+        self.layout = None
+        self.grad_layout = None
+        self._slice_specs = {}           # group -> its slice's specs
+        self._cache_spec_memo = None
 
     @classmethod
     def init_params(cls, cfg: ModelConfig, device, generator=None) -> dict:
@@ -194,8 +243,139 @@ class DenseLM(nn.Module):
 
     def init(self, generator: torch.Generator) -> dict:
         """A fresh float32 parameter tree on the model's device, drawn from
-        ``generator`` (the reference's ``init(key)``)."""
-        return self.init_params(self.cfg, self.device, generator)
+        ``generator`` (the reference's ``init(key)``); on a mesh, this
+        rank's blocks of it."""
+        params = self.init_params(self.cfg, self.device, generator)
+        if self.mesh is not None:
+            params = SH.place(params, self.layout, self.mesh)
+        return params
+
+    # ------------------------------------------------------------- mesh
+    def to_mesh(self, mesh):
+        """Run SPMD on ``mesh`` (a ``DeviceMesh`` of ``launch/mesh.py``):
+        each rank keeps its block of every parameter by ``param_spec()``
+        (read now: set the hooks first) and computes the rows that the
+        mesh's ``("pod", "data")`` axes give it (``make_train_step``'s
+        ``dp_spec`` sets others).  Returns the model."""
+        if self.mesh is not None:
+            raise ValueError("to_mesh: the model is on a mesh already")
+        self.layout = self.param_spec()
+        params = SH.place(_tensors(self.params), self.layout, mesh)
+        self.params = _as_parameters(params)
+        self.mesh = mesh
+        self.batch_axes = tuple(a for a in DP if a in mesh.mesh_dim_names)
+        return self
+
+    def _check_mesh_hooks(self):
+        if self.mesh is not None and self.act_spec is not None:
+            raise NotImplementedError(
+                "act_spec (sequence parallelism of the residual stream) is "
+                "not ported; ROADMAP.md §1 item 1")
+
+    def _batch_group(self):
+        """The ranks that split the batch's rows (None off a mesh or
+        where one rank holds them all)."""
+        if self.mesh is None:
+            return None
+        g = SH.BatchGroup(self.mesh, self.batch_axes)
+        return g if g.size > 1 else None
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (a dict or a tensor)."""
+        g = self._batch_group()
+        if g is None:
+            return batch
+        if isinstance(batch, dict):
+            return {k: g.rows(v) for k, v in batch.items()}
+        return g.rows(batch)
+
+    def _all_rows(self, x):
+        g = self._batch_group()
+        return x if g is None else g.gather_rows(x)
+
+    def _gathered(self, tree, spec, grad_spec):
+        """A tree of this rank's blocks (``spec``) gathered for compute;
+        under autograd each gradient comes back reduced over the batch
+        axes to ``grad_spec``."""
+        if isinstance(tree, dict):
+            return {k: self._gathered(v, spec[k], grad_spec[k])
+                    for k, v in tree.items()}
+        return SH.gather_for_compute(tree, spec, self.mesh, self.batch_axes,
+                                     grad_spec)
+
+    def _slice_spec(self, layout, group: str) -> dict:
+        """The spec tree of one slice of the stacked ``group`` (its
+        leading entry dropped)."""
+        return tree_map(lambda sp: P(*tuple(sp)[1:]), layout[group])
+
+    def _slice(self, p_l, group: str = "layers") -> dict:
+        """One slice of a stacked group, gathered for its compute (the
+        slice's specs kept while the layouts stay the same objects)."""
+        if self.mesh is None:
+            return p_l
+        grads = self.grad_layout or self.layout
+        hit = self._slice_specs.get(group)
+        if hit is None or hit[0] is not self.layout or hit[1] is not grads:
+            hit = (self.layout, grads, self._slice_spec(self.layout, group),
+                   self._slice_spec(grads, group))
+            self._slice_specs[group] = hit
+        return self._gathered(p_l, hit[2], hit[3])
+
+    def _top(self, params) -> dict:
+        """``params`` with every entry outside the stacked groups (the
+        embedding, the head, the final norms) gathered for compute."""
+        self._check_mesh_hooks()
+        if self.mesh is None:
+            return params
+        out = dict(params.items())
+        grads = self.grad_layout or self.layout
+        for k in out:
+            if k not in self.STACKS:
+                out[k] = self._gathered(out[k], self.layout[k], grads[k])
+        return out
+
+    def _cache_specs(self) -> dict:
+        """Per cache entry, the spec of one layer's block with the batch
+        entry dropped (the rank's rows are its own)."""
+        memo = self._cache_spec_memo
+        if memo is not None and memo[0] == self.batch_axes:
+            return memo[1]
+        specs = self.cache_spec(multi_pod="pod" in self.mesh.mesh_dim_names)
+        out = {}
+        for k, sp in specs.items():
+            sp = tuple(sp)
+            if SH.names(sp[1]) != self.batch_axes:
+                raise ValueError(
+                    f"cache_spec's batch entry {sp[1]!r} of {k!r} differs "
+                    f"from the model's batch axes {self.batch_axes}")
+            out[k] = P(None, *sp[2:])
+        self._cache_spec_memo = (self.batch_axes, out)
+        return out
+
+    def _cache_layer(self, cache, i: int) -> dict:
+        """Layer ``i`` of ``cache`` whole along every axis but the batch
+        axes (views where nothing is gathered)."""
+        if self.mesh is None:
+            return {k: v[i] for k, v in cache.items()}
+        specs = self._cache_specs()
+        return {k: SH.gather(v[i], specs[k], self.mesh)
+                for k, v in cache.items()}
+
+    def _cache_store(self, cache, i: int, layer: dict) -> None:
+        """Write back this rank's blocks of a gathered ``_cache_layer``."""
+        if self.mesh is None:
+            return
+        for k, sp in self._cache_specs().items():
+            if layer[k].data_ptr() != cache[k][i].data_ptr():
+                cache[k][i].copy_(SH.shard_of(layer[k], sp, self.mesh))
+
+    def _mesh_cache(self, cache) -> dict:
+        """A cache of this rank's rows as this rank's blocks."""
+        if self.mesh is None:
+            return cache
+        specs = self._cache_specs()
+        return {k: SH.shard_of(v, P(None, *specs[k]), self.mesh).clone()
+                for k, v in cache.items()}
 
     # ------------------------------------------------------------ block
     @staticmethod
@@ -217,11 +397,23 @@ class DenseLM(nn.Module):
         q, k, v = L.qkv_proj(p_l["attn"], h, cfg)
         q = L.rope(q, qpos, cfg.rope_theta)
         k = L.rope(k, qpos, cfg.rope_theta)
-        o = L.attention_output(q, k, v, qpos, qpos, cfg.attn_impl,
-                               causal=True, window=window,
-                               softcap=cfg.attn_logit_softcap,
-                               chunk=cfg.attn_chunk, prefix=cfg.prefix_len,
-                               use_kernels=self.use_kernels)
+        if cfg.attn_impl == "ring" and self.ring_mesh is not None:
+            # the reference's context parallelism: the sequence split
+            # over the ring's "model" axis (these rows are the rank's)
+            if cfg.window != 0 or cfg.prefix_len:
+                raise ValueError("ring attention needs window 0 and no "
+                                 "prefix-LM zone")
+            o = L.attn_ring(q, k, v, mesh=self.ring_mesh,
+                            batch_axes=self.ring_batch_axes, causal=True,
+                            softcap=cfg.attn_logit_softcap,
+                            chunk_k=min(cfg.attn_chunk, 512))
+        else:
+            o = L.attention_output(q, k, v, qpos, qpos, cfg.attn_impl,
+                                   causal=True, window=window,
+                                   softcap=cfg.attn_logit_softcap,
+                                   chunk=cfg.attn_chunk,
+                                   prefix=cfg.prefix_len,
+                                   use_kernels=self.use_kernels)
         return L.out_proj(p_l["attn"], o, h.dtype), (k, v)
 
     def _mixer_decode(self, p_l, window: int, h, c, index: int, pos):
@@ -291,7 +483,7 @@ class DenseLM(nn.Module):
         """The layer stack; under autograd and ``cfg.remat`` each layer is
         checkpointed."""
         def block(p_l, w, x):
-            return self._block_train(p_l, w, x, qpos)[0]
+            return self._block_train(self._slice(p_l), w, x, qpos)[0]
         return remat_loop([(block, (p_l, w)) for p_l, w in
                            zip(self._slices(params), self.windows)], x,
                           self.cfg.remat and torch.is_grad_enabled())
@@ -305,8 +497,9 @@ class DenseLM(nn.Module):
     @torch.no_grad()
     def forward(self, batch):
         """Logits ``[B, S, padded_vocab]`` (float32) at every position."""
-        return L.unembed(self.params, self._hidden(self.params, batch),
-                         self.cfg)
+        p = self._top(self.params)
+        return self._all_rows(L.unembed(
+            p, self._hidden(p, self._rows(batch)), self.cfg))
 
     # ------------------------------------------------------------- loss
     def _head(self, p) -> dict:
@@ -318,12 +511,24 @@ class DenseLM(nn.Module):
         masked), with autograd: ``(loss, {"loss", "tokens"})``, the mean
         over valid tokens (float32) and their count (int32).  ``params``:
         the tree to run on (a train state's), default the model's own.
-        See ``cross_entropy`` for the chunks."""
-        p = self.params if params is None else params
+        See ``cross_entropy`` for the chunks.  On a mesh ``batch`` is the
+        global batch: the rank runs its rows, divides by the global count
+        of valid tokens, and returns its share (``_mesh_loss_args``)."""
+        p = self._top(self.params if params is None else params)
+        batch, n_tokens = self._mesh_loss_args(batch)
         loss, cnt = cross_entropy(self._head(p), self._hidden(p, batch),
                                   batch["labels"].to(self.device), self.cfg,
-                                  vocab_chunk)
+                                  vocab_chunk, n_tokens)
         return loss, {"loss": loss, "tokens": cnt}
+
+    def _mesh_loss_args(self, batch):
+        """``(this rank's rows of batch, the global count of valid
+        labels)``; off a mesh ``(batch, None)``."""
+        if self._batch_group() is None:
+            return batch, None
+        n_tokens = (batch["labels"] >= 0).sum(dtype=torch.int32).to(
+            self.device)
+        return self._rows(batch), n_tokens
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch_size: int, cache_len: int) -> dict:
@@ -348,18 +553,21 @@ class DenseLM(nn.Module):
         cache holding each layer's roped k and v at positions ``0..S-1``
         (S: every position the layers see, a VLM's prefix included) and
         zeros up to ``cache_len`` (default S)."""
-        x, qpos = self._embed_inputs(self.params, batch)
+        p = self._top(self.params)
+        x, qpos = self._embed_inputs(p, self._rows(batch))
         b, s = x.shape[:2]
         cache_len = cache_len or s
         if cache_len < s:
             raise ValueError(f"prefill: cache_len {cache_len} < prompt "
                              f"length {s}")
-        cache = self.init_cache(b, cache_len)
-        for i, (p_l, w) in enumerate(zip(self._slices(self.params),
-                                         self.windows)):
-            x, state, _ = self._block_train(p_l, w, x, qpos)
-            self._fill_cache(cache, i, state, s)
-        return L.unembed(self.params, x[:, -1:, :], self.cfg), cache
+        cache = self._mesh_cache(self.init_cache(b, cache_len))
+        for i, (p_l, w) in enumerate(zip(self._slices(p), self.windows)):
+            x, state, _ = self._block_train(self._slice(p_l), w, x, qpos)
+            layer = self._cache_layer(cache, i)
+            self._fill_cache({k: v[None] for k, v in layer.items()}, 0,
+                             state, s)
+            self._cache_store(cache, i, layer)
+        return self._all_rows(L.unembed(p, x[:, -1:, :], self.cfg)), cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, index: int):
@@ -371,10 +579,91 @@ class DenseLM(nn.Module):
         if not 0 <= index < cache["k"].shape[2]:
             raise ValueError(f"decode_step: index {index} outside the "
                              f"cache (length {cache['k'].shape[2]})")
-        x = self._embed_token(self.params, tokens, index)
-        for i, (p_l, w) in enumerate(zip(self._slices(self.params),
-                                         self.windows)):
-            x = self._block_decode(p_l, w, x,
-                                   {k: v[i] for k, v in cache.items()},
-                                   index)
-        return L.unembed(self.params, x, self.cfg), cache
+        p = self._top(self.params)
+        x = self._embed_token(p, self._rows(tokens), index)
+        for i, (p_l, w) in enumerate(zip(self._slices(p), self.windows)):
+            layer = self._cache_layer(cache, i)
+            x = self._block_decode(self._slice(p_l), w, x, layer, index)
+            self._cache_store(cache, i, layer)
+        return self._all_rows(L.unembed(p, x, self.cfg)), cache
+
+    # ------------------------------------------------------- shardings
+    def _fsdp_ax(self):
+        if not self.cfg.fsdp:
+            return None
+        axes = tuple(self.fsdp_axes)
+        return axes if len(axes) > 1 else axes[0]
+
+    def param_spec(self) -> dict:
+        """The reference's ``PartitionSpec`` tree of the parameters."""
+        cfg = self.cfg
+        fs = self._fsdp_ax()
+        spec = {
+            "embedding": P("model", fs),
+            "final_norm": P(None),
+            "layers": self._layer_spec(fs),
+        }
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = P(fs, "model")
+        if self.strip_tp:
+            spec = tree_map(
+                lambda sp: P(*[None if e == "model" else e for e in sp]),
+                spec)
+        return spec
+
+    def _layer_spec(self, fs) -> dict:
+        cfg = self.cfg
+        s = {
+            "ln1": P(None, None),
+            "ln2": P(None, None),
+            "attn": {
+                "wq": P(None, fs, "model"),
+                "wk": P(None, fs, "model"),
+                "wv": P(None, fs, "model"),
+                "wo": P(None, "model", fs),
+            },
+            "mlp": {
+                "w_gate": P(None, fs, "model"),
+                "w_up": P(None, fs, "model"),
+                "w_down": P(None, "model", fs),
+            },
+        }
+        if cfg.post_norms:
+            s["ln1_post"] = P(None, None)
+            s["ln2_post"] = P(None, None)
+        return s
+
+    def cache_spec(self, multi_pod: bool = True) -> dict:
+        dp = dp_axes(multi_pod)
+        return {"k": P(None, dp, None, None, "model"),
+                "v": P(None, dp, None, None, "model")}
+
+    def input_specs(self, shape: ShapeSpec, multi_pod: bool = True) -> dict:
+        """The reference's dry-run inputs: ``{"arrays": meta tensors of
+        its shapes and dtypes, "specs": P trees}``."""
+        b, s = shape.global_batch, shape.seq_len
+        dp = dp_axes(multi_pod)
+        if shape.kind == "train":
+            return {"arrays": {"tokens": _meta((b, s)),
+                               "labels": _meta((b, s))},
+                    "specs": {"tokens": P(dp, None),
+                              "labels": P(dp, None)}}
+        if shape.kind == "prefill":
+            return {"arrays": {"tokens": _meta((b, s))},
+                    "specs": {"tokens": P(dp, None)}}
+        if shape.kind == "decode":
+            return {"arrays": {"tokens": _meta((b, 1))},
+                    "specs": {"tokens": P(dp, None)}}
+        raise ValueError(shape.kind)
+
+
+def _meta(shape, dtype=torch.int32):
+    """A tensor without storage: a shape and a dtype (the reference's
+    ``ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _tensors(tree) -> dict:
+    """A ``ParameterDict`` tree as nested dicts of detached tensors."""
+    return {k: _tensors(v) if isinstance(v, (dict, nn.ParameterDict))
+            else v.detach() for k, v in tree.items()}

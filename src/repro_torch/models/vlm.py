@@ -13,8 +13,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import DenseLM, _meta, dp_axes
+from repro_torch.utils.sharding import P
 
 
 class VLM(DenseLM):
@@ -31,3 +33,19 @@ class VLM(DenseLM):
     def _hidden(self, params, batch):
         """The text positions only."""
         return super()._hidden(params, batch)[:, self.cfg.prefix_len:]
+
+    def input_specs(self, shape: ShapeSpec, multi_pod: bool = True) -> dict:
+        """Text and prefix together fill the shape's ``seq_len``; the
+        patch embeddings beside the tokens."""
+        cfg = self.cfg
+        b = shape.global_batch
+        base = super().input_specs(shape, multi_pod)
+        if shape.kind in ("train", "prefill"):
+            s_text = shape.seq_len - cfg.prefix_len
+            base["arrays"]["tokens"] = _meta((b, s_text))
+            if shape.kind == "train":
+                base["arrays"]["labels"] = _meta((b, s_text))
+            base["arrays"]["patch_embeds"] = _meta(
+                (b, cfg.prefix_len, cfg.d_model), torch.float32)
+            base["specs"]["patch_embeds"] = P(dp_axes(multi_pod), None, None)
+        return base

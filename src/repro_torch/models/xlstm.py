@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import DenseLM, remat_loop
+from repro_torch.models.transformer import DenseLM, dp_axes, remat_loop
+from repro_torch.utils.sharding import P
 
 STATE_KEYS = ("mC", "mn", "mm", "sc", "sn", "sm", "sh")
 
@@ -189,19 +190,22 @@ class XLSTMLM(DenseLM):
         state = self._zero_pair_state(x.shape[0])
 
         def pair(p_l, st, x):
-            return self._pair(p_l, x, *st)[0]
+            return self._pair(self._slice(p_l), x, *st)[0]
         return remat_loop(
             [(pair, (p_l, tuple(state[k][i] for k in STATE_KEYS)))
              for i, p_l in enumerate(self._slices(params))], x,
             self.cfg.remat and torch.is_grad_enabled())
 
-    def _run_cached(self, x, cache):
+    def _run_cached(self, params, x, cache):
         """The pairs over ``x`` from the states in ``cache``, which each
         pair overwrites with its new state."""
-        for i, p_l in enumerate(self._slices(self.params)):
-            x, st = self._pair(p_l, x, *(cache[k][i] for k in STATE_KEYS))
+        for i, p_l in enumerate(self._slices(params)):
+            layer = self._cache_layer(cache, i)
+            x, st = self._pair(self._slice(p_l), x,
+                               *(layer[k] for k in STATE_KEYS))
             for k, t in zip(STATE_KEYS, st):
-                cache[k][i].copy_(t)
+                layer[k].copy_(t)
+            self._cache_store(cache, i, layer)
         return x
 
     # ------------------------------------------------------------ serving
@@ -211,17 +215,48 @@ class XLSTMLM(DenseLM):
 
     @torch.no_grad()
     def prefill(self, batch, cache_len: Optional[int] = None):
-        x = L.embed_tokens(self.params, batch["tokens"].to(self.device),
+        p = self._top(self.params)
+        x = L.embed_tokens(p, self._rows(batch)["tokens"].to(self.device),
                            self.cfg, self.dtype)
-        cache = self._zero_pair_state(x.shape[0])
-        x = self._run_cached(x, cache)
-        return L.unembed(self.params, x[:, -1:, :], self.cfg), cache
+        cache = self._mesh_cache(self._zero_pair_state(x.shape[0]))
+        x = self._run_cached(p, x, cache)
+        return self._all_rows(L.unembed(p, x[:, -1:, :], self.cfg)), cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, index: int):
         """One token on the recurrent state (``index`` is not needed);
         ``cache`` is updated in place and returned."""
-        x = L.embed_tokens(self.params, tokens.to(self.device), self.cfg,
-                           self.dtype)
-        x = self._run_cached(x, cache)
-        return L.unembed(self.params, x, self.cfg), cache
+        p = self._top(self.params)
+        x = L.embed_tokens(p, self._rows(tokens).to(self.device),
+                           self.cfg, self.dtype)
+        x = self._run_cached(p, x, cache)
+        return self._all_rows(L.unembed(p, x, self.cfg)), cache
+
+    # ------------------------------------------------------- shardings
+    def _layer_spec(self, fs) -> dict:
+        return {
+            "m_ln": P(None, None),
+            "m_up": P(None, fs, "model"),
+            "m_q": P(None, fs, "model"),
+            "m_k": P(None, fs, "model"),
+            "m_v": P(None, fs, "model"),
+            "m_gates": P(None, "model", None),
+            "m_down": P(None, "model", fs),
+            "s_ln": P(None, None),
+            "s_gates": P(None, fs, "model"),
+            "s_rec": P(None, None, "model"),
+            "s_down": P(None, "model", fs),
+        }
+
+    def cache_spec(self, multi_pod: bool = True) -> dict:
+        dp = dp_axes(multi_pod)
+        # the (large) per-head state dimension is split, not the head count
+        return {
+            "mC": P(None, dp, None, "model", None),
+            "mn": P(None, dp, None, "model"),
+            "mm": P(None, dp, None),
+            "sc": P(None, dp, "model"),
+            "sn": P(None, dp, "model"),
+            "sm": P(None, dp, "model"),
+            "sh": P(None, dp, "model"),
+        }

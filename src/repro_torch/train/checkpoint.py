@@ -67,34 +67,70 @@ def _save_leaf(path: str, leaf) -> tuple[list, str]:
     return list(arr.shape), str(arr.dtype)
 
 
-def _load_leaf(path: str, dtype: str, device) -> torch.Tensor:
-    arr = np.load(path)
+def _load_leaf(path: str, dtype: str, device, block=None) -> torch.Tensor:
+    """A leaf's file; ``block`` ``(spec, mesh)``: only this rank's block
+    of it."""
+    arr = np.load(path, mmap_mode="r" if block is not None else None)
+    if block is not None:
+        from repro_torch.utils import sharding as SH
+        spec, mesh = block
+        idx = SH.shard_index(arr.shape, spec, mesh.shape,
+                             mesh.mesh_dim_names, mesh.get_coordinate())
+        arr = np.array(arr[idx] if idx else arr)
     if dtype == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
 
 
-def save_checkpoint(root: str, step: int, state, keep: int = 3) -> str:
-    os.makedirs(root, exist_ok=True)
+def save_checkpoint(root: str, step: int, state, keep: int = 3,
+                    shardings=None) -> str:
+    """Write ``state``'s leaves under ``root/step_<step>``.
+
+    ``shardings`` ``(spec_tree, mesh)``: ``state`` holds this rank's
+    blocks under the specs (``state_spec``).  Every rank gathers each
+    leaf whole, one leaf at a time, and rank 0 alone writes it, so the
+    files are those of the unsharded state, whatever the mesh; every rank
+    returns once rank 0 has committed."""
+    rank0 = True
+    if shardings is not None:
+        import torch.distributed as dist
+        from repro_torch.utils import sharding as SH
+        spec_tree, mesh = shardings
+        specs = SH.tree_specs(spec_tree, state)
+        rank0 = dist.get_rank() == 0
     final = os.path.join(root, f"step_{step:08d}")
     tmp = os.path.join(root, f"tmp_step_{step:08d}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if rank0:
+        os.makedirs(root, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {"step": step, "time": time.time(), "leaves": {}}
-    for name, leaf in flatten_with_paths(state):
+    for i, (name, leaf) in enumerate(flatten_with_paths(state)):
+        if shardings is not None and torch.is_tensor(leaf):
+            leaf = SH.gather(leaf, specs[i], mesh)
+        if not rank0:
+            continue
         if torch.is_tensor(leaf) and leaf.device.type != "cpu":
             leaf = leaf.cpu()
         shape, dtype = _save_leaf(os.path.join(tmp, _leaf_file(name)), leaf)
         manifest["leaves"][name] = {"shape": shape, "dtype": dtype}
-    with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
-        json.dump(manifest, f, indent=2)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)                      # atomic commit
-    _gc(root, keep)
+    if rank0:
+        with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)                  # atomic commit
+        _gc(root, keep)
+    if shardings is not None:       # a barrier: rank 0 has committed
+        SH.all_reduce_mesh(torch.zeros((), device=_device(mesh)), mesh)
     return final
+
+
+def _device(mesh):
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
 
 
 def _gc(root: str, keep: int):
@@ -120,11 +156,15 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def restore_checkpoint(root: str, target, step: Optional[int] = None,
-                       device=None):
+                       device=None, shardings=None):
     """``target``: a template tree (same structure; values ignored).
     Each leaf comes back in the checkpoint's dtype, on ``device`` or,
     without one, on the template leaf's device (with ``device`` given, a
-    template of meta tensors will do).  Returns ``(tree, step)``."""
+    template of meta tensors will do).  ``shardings`` ``(spec_tree,
+    mesh)`` places each leaf as the reference's ``shardings=`` does:
+    every rank reads its block under the leaf's spec (from a file mapped,
+    not read whole), whatever mesh wrote the checkpoint.  Returns
+    ``(tree, step)``."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -136,11 +176,16 @@ def restore_checkpoint(root: str, target, step: Optional[int] = None,
     missing = [n for n, _ in named if n not in manifest["leaves"]]
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]}...")
+    specs = [None] * len(named)
+    if shardings is not None:
+        from repro_torch.utils import sharding as SH
+        specs = SH.tree_specs(shardings[0], target)
     leaves = [_load_leaf(os.path.join(d, _leaf_file(n)),
                          manifest["leaves"][n]["dtype"],
                          device if device is not None
-                         else getattr(t, "device", "cpu"))
-              for n, t in named]
+                         else getattr(t, "device", "cpu"),
+                         None if sp is None else (sp, shardings[1]))
+              for (n, t), sp in zip(named, specs)]
     return tree_unflatten(target, leaves), step
 
 

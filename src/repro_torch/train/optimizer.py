@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.utils.sharding import sharded_global_norm
 from repro_torch.utils.tree import global_norm, tree_leaves, tree_map
 
 
@@ -63,12 +64,18 @@ def init_opt_state(params, master_copy: bool = False) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, shardings=None):
     """One AdamW step.  Returns ``(params, state, metrics)``: ``params``
     and ``state`` are the arguments, updated in place; ``metrics`` holds
-    ``lr`` and ``grad_norm`` (0-d float32 tensors)."""
+    ``lr`` and ``grad_norm`` (0-d float32 tensors).  ``shardings``
+    ``(spec_tree, mesh)``: every tree holds this rank's blocks under the
+    specs; the update is elementwise, and the clipping norm is the
+    global tree's (``utils.sharding.sharded_global_norm``)."""
     step = state["step"]
-    gnorm = global_norm(grads)
+    if shardings is None:
+        gnorm = global_norm(grads)
+    else:
+        gnorm = sharded_global_norm(grads, *shardings)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.clip_norm > 0 else 1.0)
     lr = lr_at(cfg, step)

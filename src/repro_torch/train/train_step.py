@@ -5,7 +5,9 @@ microbatch gradient accumulation (the reference's
 The step is ``(train_state, batch) -> (train_state, metrics)``.  It
 updates the state's tensors in place and returns the same state: one
 copy of Gemma-2 2B's state (bf16 params, float32 master, m and v) is
-36.6 GB, and a second would not fit beside it on one card.
+36.6 GB, and a second would not fit beside it on one card.  On a device
+mesh (a model placed by ``to_mesh``) it is the ZeRO-3 data-parallel step
+of ``make_train_step``'s docstring, the state sharded by ``state_spec``.
 """
 from __future__ import annotations
 
@@ -14,10 +16,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.transformer import _as_parameters
+from repro_torch.models.transformer import _as_parameters, _tensors
 from repro_torch.train.compression import (
     CompressionConfig, compress_grads, init_error_state)
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.utils import sharding as SH
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -38,12 +41,13 @@ def init_train_state(model, generator: Optional[torch.Generator] = None,
     parameters.  The model is then rebound to ``state.params`` (the same
     tensors): it runs directly on them, and its own float32 tree is
     released, so the float32 copy lives only as the optimizer's master.
-    The state lives on the model's device."""
+    The state lives on the model's device; on a mesh it holds this
+    rank's blocks, as ``state_spec`` lays them out."""
     if generator is not None:
         params = model.init(generator)
     else:
         params = tree_map(lambda p: p.detach().to(torch.float32, copy=True),
-                          _plain(model.params))
+                          _tensors(model.params))
     if model.cfg.dtype == "bfloat16":
         opt = init_opt_state(params, master_copy=True)   # float32 master
         params = tree_map(lambda p: p.to(torch.bfloat16), params)
@@ -55,25 +59,11 @@ def init_train_state(model, generator: Optional[torch.Generator] = None,
     return TrainState(params, opt, err)
 
 
-def _plain(tree):
-    """A ``ParameterDict`` tree as nested dicts of its tensors."""
-    return {k: _plain(v) if isinstance(v, (dict, torch.nn.ParameterDict))
-            else v for k, v in tree.items()}
-
-
 def _drain(t, buf):
     """Add a leaf's gradient into its buffer (a float32 sum of bf16
     gradients rounds as the reference's tree add does) and free it."""
     buf.add_(t.grad)
     t.grad = None
-
-
-def _mesh_only(**specs):
-    for name, spec in specs.items():
-        if spec is not None:
-            raise NotImplementedError(
-                f"{name}: sharding specs need the port's mesh work "
-                "(ROADMAP.md §1 item 12)")
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
@@ -84,12 +74,39 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
     reads (``audio_embeds``, ``patch_embeds``).  With ``microbatches >
     1`` the leading axis is split into that many equal parts, their
     gradients are summed in float32 and averaged, and ``metrics`` holds
-    the mean ``loss`` only (as in the reference).  ``dp_spec`` / ``grad_spec``
-    are the reference's mesh arguments: a value other than ``None``
-    raises ``NotImplementedError``."""
-    _mesh_only(dp_spec=dp_spec, grad_spec=grad_spec)
+    the mean ``loss`` only (as in the reference).
+
+    ``dp_spec`` / ``grad_spec`` are the reference's mesh arguments, and
+    act only on a model placed on a mesh (``model.to_mesh``; without one
+    they change nothing, as in the reference without a mesh).  There the
+    step runs SPMD, every rank on the same global batch, the state held
+    as ``state_spec`` says (each rank its blocks):
+
+    * ``dp_spec`` (a mesh axis or a tuple of axes) splits the batch's
+      rows: microbatch i is rows ``[i b/m, (i+1) b/m)`` of the batch,
+      split over those axes (the reference's ``P(None, dp_spec)``).
+      Ranks that differ along other axes compute the same rows.  The
+      loss divides by the global count of valid tokens, so the ranks'
+      gradients and metrics sum to the global batch's.
+    * A layer's weights are gathered for its compute (and again by a
+      recomputing backward); each gradient comes back summed over the
+      ``dp_spec`` ranks down to its block under ``grad_spec`` (a
+      reduce-scatter) or, without one, whole on every rank (an
+      all-reduce: plain data parallelism), then cut to the state's
+      block.
+    * Clipping, compression and AdamW run on the blocks, with the
+      global tree's norm, int8 scales and top-k thresholds.
+    """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, not {microbatches}")
+    mesh = model.mesh
+    if mesh is not None:
+        model.batch_axes = SH.axes_of(dp_spec)
+        model.grad_layout = (SH.replicated(model.layout) if grad_spec is None
+                             else grad_spec)
+        SH.tree_specs(model.grad_layout, model.layout)   # names must match
+    shardings = None if mesh is None else (model.layout, mesh)
+    group = None if mesh is None else model._batch_group()
 
     def add_grads(params, batch, bufs):
         """Run the loss and add its gradients into ``bufs`` (a tree like
@@ -149,19 +166,28 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
     def train_step(state: TrainState, batch):
         loss, metrics, grads = accumulate(state.params, batch)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            # the ranks' shares of the loss and metrics sum to the batch's
+            metrics = {k: group.sum(v) for k, v in metrics.items()}
         err = state.err
         if compression and compression.kind != "none":
-            grads, err, cstats = compress_grads(grads, err, compression)
+            grads, err, cstats = compress_grads(grads, err, compression,
+                                                shardings)
             metrics = {**metrics, **cstats}
         params, opt, opt_metrics = adamw_update(
-            state.params, grads, state.opt, opt_cfg)
+            state.params, grads, state.opt, opt_cfg, shardings)
         return TrainState(params, opt, err), {**metrics, **opt_metrics}
 
     return train_step
 
 
 def state_spec(model, compression: Optional[CompressionConfig] = None):
-    """The reference's ``PartitionSpec`` tree of a train state: mesh-only,
-    raises ``NotImplementedError``."""
-    raise NotImplementedError("state_spec: sharding specs need the port's "
-                              "mesh work (ROADMAP.md §1 item 12)")
+    """The reference's ``PartitionSpec`` tree of a train state: params,
+    the moments, the float32 master (bf16 configs) and the error
+    feedback (compression) all by ``param_spec``, the step replicated."""
+    pspec = model.param_spec()
+    err = pspec if (compression and compression.kind != "none") else None
+    opt = {"m": pspec, "v": pspec, "step": SH.P()}
+    if model.cfg.dtype == "bfloat16":
+        opt["master"] = pspec
+    return TrainState(params=pspec, opt=opt, err=err)

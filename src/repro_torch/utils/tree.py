@@ -8,6 +8,9 @@ a list or tuple, ``None`` (no leaves) or a dataclass instance such as
 letter: dict keys and sequence indices joined by ``/``, and a dataclass
 field as ``[<flat index i>]`` (the reference registers ``TrainState``
 as a pytree without keys), so checkpoints interchange between the two.
+A tuple that says it is a leaf (``is_tree_leaf``, as the partition spec
+``utils.sharding.P`` does) is a leaf, as JAX's ``PartitionSpec`` is under
+``is_leaf``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ def _children(tree):
         keys = sorted(tree)
         return ([str(k) for k in keys], [tree[k] for k in keys],
                 lambda vals: dict(zip(keys, vals)))
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not getattr(tree, "is_tree_leaf",
+                                                       False):
         return ([str(i) for i in range(len(tree))], list(tree),
                 lambda vals: type(tree)(vals))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):

@@ -38,6 +38,7 @@ from repro.train.optimizer import AdamWConfig as JAdamW  # noqa: E402
 from repro.train.optimizer import lr_at as jlr_at  # noqa: E402
 from repro.train.train_step import init_train_state as jinit  # noqa: E402
 from repro.train.train_step import make_train_step as jmake  # noqa: E402
+from repro.train.train_step import state_spec as jstate_spec  # noqa: E402
 from repro.utils import analytic as janalytic  # noqa: E402
 from repro.utils.tree import flatten_with_paths as jflat  # noqa: E402
 from repro_torch.configs import base as CB  # noqa: E402
@@ -56,6 +57,7 @@ from repro_torch.train.optimizer import AdamWConfig, lr_at  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     TrainState, init_train_state, make_train_step, state_spec)
 from repro_torch.utils import analytic, tree as T  # noqa: E402
+from repro_torch.utils.sharding import P as SP  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -449,14 +451,45 @@ def test_lr_at_matches_reference(step):
         float(jlr_at(jcfg, jnp.int32(step))), rtol=1e-6)
 
 
+class _OneRankMesh:
+    """What the port reads of a 1 x 1 ``DeviceMesh``, with no process
+    group (an axis of size 1 issues no collective)."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 1)
+    device_type = "cpu"
+
+    def get_coordinate(self):
+        return [0, 0]
+
+
 def test_mesh_specs_raise():
-    _, tmodel = _pair()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(tmodel, AdamWConfig(), dp_spec=("data",))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(tmodel, AdamWConfig(), grad_spec={})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        state_spec(tmodel)
+    """The mesh arguments are ported: ``state_spec`` is the reference's
+    tree; ``dp_spec`` / ``grad_spec`` on a model off a mesh change nothing
+    (as the reference's without one), and on a 1 x 1 mesh the step is the
+    meshless one bit for bit.  What still raises: ``act_spec`` (sequence
+    parallelism, not ported) on a mesh, naming ROADMAP."""
+    jmodel, tmodel = _pair()
+    got = T.flatten_with_paths(state_spec(tmodel))
+    want = jflat(jstate_spec(jmodel))
+    assert [(n, tuple(s)) for n, s in got] == \
+        [(n, tuple(s)) for n, s in want]
+    batch = _tb(_batch(tmodel.cfg, 6))
+    runs = []
+    for specs, on_mesh in (({}, False), ({"dp_spec": ("data",)}, False),
+                           ({"dp_spec": "data"}, True)):
+        _, model = _pair()
+        if on_mesh:
+            model.to_mesh(_OneRankMesh())
+        kw = dict(specs, grad_spec=model.param_spec()) if specs else {}
+        state, met = make_train_step(model, AdamWConfig(), **kw)(
+            init_train_state(model), batch)
+        runs.append(([_np(x).tobytes() for _, x in
+                      T.flatten_with_paths(state)],
+                     {k: float(v) for k, v in met.items()}))
+    assert runs[0] == runs[1] == runs[2]
+    model.act_spec = SP("data", "model", None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.forward(batch)
 
 
 # ------------------------------------------ tests/test_train.py, ported
