@@ -18,10 +18,16 @@ and checks the answers against host oracles (scipy, numpy), the plain
 versions on the card and float32 models; then the distributed engine on
 a device mesh (a 1 x 1 NCCL mesh in this process, a 2 x 2 gloo mesh of
 four processes on the one card), and the LM on a device mesh (a 1 x 1
-NCCL mesh in this process, a 2 x 2 gloo mesh of four processes).
-Phases, in the order they run (7 runs between 5 and 6, 10 between 7's
-service fusion and the rest of 7); any failure exits non-zero and prints
-no result line:
+NCCL mesh in this process, a 2 x 2 gloo mesh of four processes), and
+last the dry run's predicted peaks against what phases 6 and 8 measured.
+Phases, in the order they run: 0, 1, 2 (its small checks), 6, 8, 9, 2
+(its main-path shapes), 3, 4, 5, 7 (service fusion), 10, 7 (the rest),
+11, 12; any failure exits non-zero and prints no result line.  Host work
+runs beside the card's phases: a helper process (``--host-work``)
+computes the dry run's predictions and HITS's float64 oracle, another
+(``--host-graph``) the 2^24 graph's host build (read after phase 9), and
+a thread phase 5's OrientedELL of permuted ids and phase 7's LPA and HITS
+graphs (beside phases 3-10).
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -169,9 +175,15 @@ no result line:
               each against LocalEngine on the card (exact answers
               byte-equal, PageRank within 1e-6, HITS within 1e-4), no
               kernel launched, and a planted fault (one rank's data shard
-              without edges) that must show; its times check wiring and
-              are not a multi-card measure.  Every process group has a
-              120 s timeout
+              without edges) that must show; then 10 service tickets (4 BFS
+              and 4 SSSP fused, 2 CC) through ``submit`` and
+              ``drain(workers=1)`` on the (2, 2) mesh, rank 1 with planted
+              divergences (another interactive threshold, its queues
+              reversed): every rank's execution log rank 0's, answers
+              byte-equal to LocalEngine's (the check must see another
+              ticket's answer), ``drain(workers=2)`` refused; its times
+              check wiring and are not a multi-card measure.  Every
+              process group has a 120 s timeout
   9. families the other LM families at full width, one model at a time
               (bf16 activations over float32 masters from seed 0, freed
               before the next), each through ``greedy_generate`` with 2
@@ -198,7 +210,7 @@ no result line:
               reference's 2e-3, where one position late must show;
               prefill and decode times, tokens/s, peak memory, flash's
               device time in the prefill
- 11. lm mesh  (after 9) the LM on a ``DeviceMesh``: (a) a 1 x 1 NCCL mesh
+ 11. lm mesh  (after 7) the LM on a ``DeviceMesh``: (a) a 1 x 1 NCCL mesh
               in this process at full width and depth: Gemma-2 2B served
               with the params placed by ``param_spec`` and the cache by
               ``cache_spec`` (phase 6's first request: the same greedy
@@ -223,9 +235,19 @@ no result line:
               prefill (last logits and the last layer's k cache by halves
               of the sequence, within twice the bf16 run's distance from
               float32), with a planted fault (the ring without its query
-              offset) that must break the second half alone; no kernel
-              launched; peaks a rank.  Every process group has a 300 s
-              timeout
+              offset) that must break the second half alone; Gemma-2 2B's
+              step 2 again under ``act_spec = P("data", "model", None)``
+              (its own peak beside the plain step's) and Granite-8B's ring
+              train step (2 layers, 2 x 2048) against rank 0's meshless
+              steps (phase 8's limits), each with a planted fault (the
+              layer gather's gradient sliced; the ring output's gradient
+              summed); no kernel launched; peaks a rank.  Every process
+              group has a 300 s timeout
+ 12. dry run  the dry run (``launch/dryrun.py``: one rank, meta tensors,
+              computed by the host-work helper) of phase 8's train step
+              and phase 6's first prefill: the predicted peak within 15 %
+              of the measured one, and a planted fault (the optimizer
+              state, the parameters left out of the count) outside it
 
 Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
 ``OrientedELL``, and over one built from the same edges under the
@@ -355,7 +377,7 @@ def max_abs_err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def identifier_graph(log2v: int, seed: int):
+def identifier_graph(log2v: int, seed: int, device=None):
     """The combined-connected-users input: four identifier edge sets over
     2^log2v users, symmetrized and deduplicated, on cuda:0, each link
     weighted by a random multiple of 1/4 in [1, 4] (exact float32 path
@@ -373,7 +395,7 @@ def identifier_graph(log2v: int, seed: int):
     del sets
     rng = np.random.default_rng(seed + 1000)
     w = (1.0 + rng.integers(0, 13, src.size) / 4.0).astype(np.float32)
-    coo = G.build_coo(src, dst, V, w=w, symmetrize=True)
+    coo = G.build_coo(src, dst, V, w=w, symmetrize=True, device=device)
     log(f"graph V=2^{log2v}={V} seed={seed}: {coo.n_edges} directed edges, "
         f"host build {time.perf_counter() - t0:.1f} s")
     return coo
@@ -1981,7 +2003,55 @@ def _scipy_components(coo):
     return lab
 
 
-def lpa_phase(g20):
+class Prebuilt:
+    """Host builds of later phases' graphs in a thread beside the card's
+    phases (numpy sorts release the GIL): ``get(name)`` waits for one."""
+
+    def __init__(self, builds: dict):
+        self._builds = builds
+        self._out = {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for name, fn in self._builds.items():
+            t0 = time.perf_counter()
+            try:
+                self._out[name] = (fn(), time.perf_counter() - t0)
+            except BaseException as e:       # re-raised by get()
+                self._out[name] = (e, None)
+
+    def get(self, name: str):
+        """``(value, its build's seconds)``."""
+        while name not in self._out:
+            if not self._thread.is_alive() and name not in self._out:
+                fail(f"prebuilt {name}: the build thread ended without it")
+            time.sleep(0.2)
+        value, secs = self._out.pop(name)
+        if secs is None:
+            raise value
+        return value, secs
+
+
+def permuted_oriented(coo, perm):
+    """The OrientedELL of ``coo`` with its ids relabelled by ``perm``."""
+    from repro_torch.core import graph as G
+    src, dst = _host_edges(coo)
+    p = perm.cpu().numpy()
+    return G.build_oriented_ell(p[src], p[dst], coo.n_vertices)
+
+
+def hits_graph():
+    """HITS's user-follow graph at 2^SLICE_LOG2V (mean degree 8): its
+    host edges and the COO on the card."""
+    from repro_torch.core import graph as G
+    from repro_torch.data import synthetic
+    V = 2 ** SLICE_LOG2V
+    src, dst = synthetic.user_follow_graph(V, 8.0, seed=5)
+    return src, dst, G.build_coo(src, dst, V)
+
+
+def lpa_phase(g20, pre):
     """Label propagation through ``GraphPlatform`` on the symmetrized
     identifier graph at 2^SLICE_LOG2V: two runs give the same bytes, every
     community lies inside one of scipy's components, and the count query
@@ -1991,7 +2061,7 @@ def lpa_phase(g20):
     import torch
     from repro_torch.core.engines import LocalEngine
     from repro_torch.core.query import GraphPlatform, GraphQuery
-    coo = identifier_graph(SLICE_LOG2V, seed=4)
+    coo, _ = pre.get("lpa")
     plat = GraphPlatform(coo)
     q = GraphQuery.label_propagation()
     torch.cuda.reset_peak_memory_stats()
@@ -2059,26 +2129,23 @@ def hits_oracle(src, dst, V: int, max_iters: int = 50, tol: float = 1e-6):
             "authorities": a.astype(np.float32)}, iters
 
 
-def hits_phase():
+def hits_phase(helper, pre):
     """HITS through ``GraphPlatform`` on the user-follow graph at
-    2^SLICE_LOG2V (mean degree 8) against ``hits_oracle`` (float64)
-    within HITS_ATOL, as ``tests/test_hits.py`` holds it, and the
-    relative L2 distance of each score vector within HITS_REL_L2."""
+    2^SLICE_LOG2V (mean degree 8) against ``hits_oracle`` (float64,
+    computed by the host-work helper on the same seed's edges) within
+    HITS_ATOL, as ``tests/test_hits.py`` holds it, and the relative L2
+    distance of each score vector within HITS_REL_L2."""
     import numpy as np
     from repro_torch.core import graph as G
     from repro_torch.core.query import GraphPlatform, GraphQuery
     from repro_torch.data import synthetic
-    V = 2 ** SLICE_LOG2V
-    t0 = time.perf_counter()
-    src, dst = synthetic.user_follow_graph(V, 8.0, seed=5)
-    coo = G.build_coo(src, dst, V)
-    build_s = time.perf_counter() - t0
+    (src, dst, coo), build_s = pre.get("hits")
     plat = GraphPlatform(coo)
     r, ms = _timed(lambda: plat.query(GraphQuery.of(
         "hits", max_iters=HITS_MAX_ITERS)))
-    t0 = time.perf_counter()
-    want, want_iters = hits_oracle(src, dst, V, max_iters=HITS_MAX_ITERS)
-    oracle_s = time.perf_counter() - t0
+    with np.load(host_work_wait(helper, "hits.npz")) as z:
+        want = {k: z[k] for k in ("hubs", "authorities")}
+        want_iters, oracle_s = int(z["iters"]), float(z["seconds"])
     errs = {}
     for k in ("hubs", "authorities"):
         got = r.value[k].cpu().numpy().astype(np.float64)
@@ -2191,6 +2258,134 @@ def cli_phase():
     return row
 
 
+# ------------------------------------------------------------ host work
+#
+# Work on the host alone, in a helper process (``chip_smoke.py
+# --host-work``) started before phase 1 so that it overlaps the card's
+# phases: the dry run's predicted peaks (phase 12) and HITS's float64
+# oracle (phase 7; 86-137 s at 2^22 on the card's host).  One thread.
+
+HOST_WORK_DIR = ROOT / "build" / "host_work"
+HOST_GRAPH_DIR = ROOT / "build" / "host_graph"   # the 2^24 graph's build
+HOST_WORK_DEADLINE_S = 900.0
+# phase 12: the dry run's predicted peak within DRYRUN_PEAK_TOL of the
+# measured one, for phase 8's train step and phase 6's first request
+DRYRUN_PEAK_TOL = 0.15
+
+
+def dryrun_predictions() -> dict:
+    """The dry run (``launch/dryrun.py``, one rank, no mesh, meta
+    tensors) of phase 8's step and of phase 6's first prefill: the
+    predicted peak, by category, and each prediction with a planted
+    fault: the optimizer state (train) or the parameters (serve) left
+    out of the count."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    b, s, _ = SERVE_BATCHES[0]
+    out = {}
+    for tag, arch, shape, kw, left_out in (
+            ("train", TRAIN_ARCH,
+             ShapeSpec("phase8", "train", TRAIN_SEQ, TRAIN_BATCH),
+             {"microbatches": 1}, "opt"),
+            ("serve", SERVE_ARCH, ShapeSpec("phase6a", "prefill", s, b),
+             {"param_dtype": "float32"}, "params")):
+        t0 = time.perf_counter()
+        program, _ = D.lower_cell(arch, shape, None, **kw)
+        got = D.measure(program)
+        mem = got["memory"]
+        out[tag] = {"shape": [shape.global_batch, shape.seq_len],
+                    "peak_gb": mem["peak"] / 1e9,
+                    "memory_gb": {k: v / 1e9 for k, v in mem.items()},
+                    "fault": f"{left_out} left out of the count",
+                    "fault_peak_gb": (mem["peak"] - mem[left_out]) / 1e9,
+                    "ops": got["ops"],
+                    "seconds": time.perf_counter() - t0}
+        del program
+    return out
+
+
+def host_work_main(outdir: str) -> int:
+    """``chip_smoke.py --host-work DIR``: the dry run's predictions, then
+    HITS's oracle; results to DIR."""
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic
+    torch.set_num_threads(1)
+    out = Path(outdir)
+    t0 = time.perf_counter()
+    pred = dryrun_predictions()
+    pred["seconds"] = time.perf_counter() - t0
+    with _whole(out / "dryrun.json") as f:
+        f.write(json.dumps(pred).encode())
+    t0 = time.perf_counter()
+    src, dst = synthetic.user_follow_graph(2 ** SLICE_LOG2V, 8.0, seed=5)
+    want, iters = hits_oracle(src, dst, 2 ** SLICE_LOG2V,
+                              max_iters=HITS_MAX_ITERS)
+    with _whole(out / "hits.npz") as f:
+        np.savez(f, iters=iters, seconds=time.perf_counter() - t0, **want)
+    return 0
+
+
+@contextlib.contextmanager
+def _whole(path: Path):
+    """A file that appears under ``path`` only once it is written whole
+    (written beside it, then renamed), for a reader that polls."""
+    import os
+    tmp = path.with_name(path.name + ".part")
+    with open(tmp, "wb") as f:
+        yield f
+    os.replace(tmp, path)
+
+
+_CHILDREN = []             # helper processes, stopped when main ends
+
+
+def host_graph_main(outdir: str) -> int:
+    """``chip_smoke.py --host-graph DIR``: the main-path graph's host
+    build (phases 2-5, 7, 10), to DIR (``g4.pt``, then ``g4.json``)."""
+    import torch
+    out = Path(outdir)
+    t0 = time.perf_counter()
+    coo = identifier_graph(MAIN_LOG2V, seed=3, device="cpu")
+    with _whole(out / "g4.pt") as f:
+        torch.save(coo, f)
+    with _whole(out / "g4.json") as f:
+        f.write(json.dumps({"seconds": time.perf_counter() - t0}).encode())
+    return 0
+
+
+def host_work_start(flag: str = "--host-work", where: Path = HOST_WORK_DIR):
+    import os
+    import shutil
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             flag, str(where)], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.where = where
+    _CHILDREN.append(proc)
+    return proc
+
+
+def host_work_wait(proc, name: str) -> Path:
+    """The helper's result file ``name`` (each written whole, then the
+    next), waiting while the helper runs."""
+    path = proc.where / name
+    deadline = time.monotonic() + HOST_WORK_DEADLINE_S
+    while not path.exists() and proc.poll() is None \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    if not path.exists():
+        if proc.poll() is None:
+            proc.kill()
+        o, _ = proc.communicate()
+        fail(f"host work ended {proc.returncode} without {name}:\n"
+             f"{(o or '')[-3000:]}")
+    return path
+
+
 # -------------------------------------------------------------- phase 10
 #
 # The distributed engine on a device mesh.  (a) A 1 x 1 NCCL mesh in
@@ -2225,6 +2420,22 @@ MESH_GLOO_QUERIES = (
     ("hits", "d", "hits", {"max_iters": 20, "tol": 1e-6}),
     ("triangles", "t", "triangle_count", {}),
 )
+
+
+# the service's queues on the mesh: (graph, query) of each ticket, in
+# submission order; rank MESH_DIVERGENT_RANK plans with another
+# interactive threshold and reverses its queues before the drain
+MESH_DIVERGENT_RANK = 1
+
+
+def mesh_service_tickets():
+    from repro_torch.core.query import GraphQuery
+    sources = (0, 7, 100, 1000)
+    return ([("d", GraphQuery.bfs([s], max_iters=BFS_HOPS)) for s in sources]
+            + [("w", GraphQuery.sssp(s, max_iters=BFS_HOPS))
+               for s in sources]
+            + [("s", GraphQuery.of("connected_components")),
+               ("t", GraphQuery.of("connected_components"))])
 
 
 def mesh_gloo_graphs(device):
@@ -2294,6 +2505,34 @@ def mesh_gloo_rank(rank: int) -> int:
                                  "realized_variant":
                                      r.meta.get("realized_variant")})
         del engines
+    # the service's queues on the mesh: submit, drain(workers=1); rank 1's
+    # divergence (every ticket interactive, its queues reversed) must give
+    # way to rank (0, 0)'s schedule; drain(workers=2) must raise
+    from repro_torch.core.service import GraphAnalyticsService
+    svc = GraphAnalyticsService(interactive_threshold_s=(
+        1e9 if rank == MESH_DIVERGENT_RANK else 0.0))
+    for k in ("d", "w", "s", "t"):
+        svc.add_graph(k, gs[k], mesh=mesh, n_data=2, n_model=2,
+                      force_engine="distributed")
+    tickets = [svc.submit(g, q) for g, q in mesh_service_tickets()]
+    if rank == MESH_DIVERGENT_RANK:
+        for q in svc._queues.values():
+            q.reverse()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.drain(workers=1)
+    torch.cuda.synchronize()
+    meta["service"] = {"drain_ms": (time.perf_counter() - t0) * 1e3,
+                       "log": [dict(e) for e in svc.execution_log]}
+    for i, t in enumerate(tickets):
+        for k, v in _values(svc.result(t)).items():
+            out[f"service/{i}/{k}"] = v
+    try:
+        svc.drain(workers=2)
+        meta["service"]["threads_refused"] = None
+    except ValueError as e:
+        meta["service"]["threads_refused"] = str(e)
+    del svc, tickets
     meta["launches"] = launch_counts()
     # the planted fault: rank 1 drops its data shard's edges (1-D layout)
     eng = DistributedEngine(gs["s"], mesh=mesh)
@@ -2439,6 +2678,9 @@ def mesh_gloo_phase():
             variant = "bitset" if algo == "triangle_count" else None
             r = LocalEngine(gs[gk]).run(algo, params, variant=variant)
             want[name] = (_values(r), r.iterations)
+        want_service = [_values(LocalEngine(gs[gk]).run(q.algorithm,
+                                                         q.params))
+                        for gk, q in mesh_service_tickets()]
         del gs
         deadline = time.monotonic() + MESH_GLOO_DEADLINE_S
         outs = []
@@ -2491,6 +2733,25 @@ def mesh_gloo_phase():
                          f"supersteps, LocalEngine {iters}")
         faults.append(got["fault/cc"].tobytes()
                       == want["cc"][0]["value"].tobytes())
+        for i, vals in enumerate(want_service):
+            for k, v in vals.items():
+                g = got[f"service/{i}/{k}"]
+                if not (g.dtype == v.dtype and g.tobytes() == v.tobytes()):
+                    fail(f"mesh rank {r} service ticket {i} {k}: differs "
+                         "from LocalEngine")
+        if meta["service"]["log"] != metas[0]["service"]["log"]:
+            fail(f"mesh rank {r}: its service ran other units than rank "
+                 f"(0, 0)'s: {meta['service']['log']}")
+        if not meta["service"]["threads_refused"]:
+            fail(f"mesh rank {r}: drain(workers=2) ran on the mesh service")
+        if r == 0:
+            # the check's own planted fault: ticket 0 (BFS from 0) held to
+            # ticket 1's answer (BFS from 7) must differ
+            service_fault_seen = got["service/0/value"].tobytes() != \
+                want_service[1]["value"].tobytes()
+    if not service_fault_seen:
+        fail("mesh service: the answer check cannot see another ticket's "
+             "answer")
     if all(faults):
         fail("the planted fault (rank 1's data shard without edges) was "
              "not seen")
@@ -2501,6 +2762,10 @@ def mesh_gloo_phase():
             if m["rank"] == 0]
     out = {"rows": rows, "fault_seen_on_ranks":
            [r for r, same in enumerate(faults) if not same],
+           "service": {"drain_ms": [m["service"]["drain_ms"] for m in metas],
+                       "units": metas[0]["service"]["log"],
+                       "divergent_rank": MESH_DIVERGENT_RANK,
+                       "answer_fault_seen": service_fault_seen},
            "phase_s": wall,
            "note": "gloo on one card: a wiring check, not a multi-card "
                    "measure"}
@@ -3242,6 +3507,10 @@ LM_RING_ARCH = "granite-8b"
 LM_RING_LAYERS = 2         # depth cut: full width, 2 layers (4 took 2 x
                            # 18 s over gloo)
 LM_RING_BATCH, LM_RING_SEQ = 2, 8192
+# the ring's train step (Granite-8B, LM_RING_LAYERS layers), a quarter
+# of the ring prefill's prompt: one step against rank 0's meshless
+# chunked step, one more with a planted fault
+LM_RING_TRAIN_BATCH, LM_RING_TRAIN_SEQ = 2, 2048
 # (b)'s train steps against rank 0's meshless ones: grad_norm within
 # MB_GNORM_RTOL, the masters within MB_UPDATE_TOL (phase 8's microbatch
 # limits), and at microbatches=1 the loss within a relative
@@ -3430,6 +3699,64 @@ def _halves(got, want, noise_of):
             for h in (slice(0, s), slice(s, None))]
 
 
+def _clone_state(state):
+    import dataclasses
+
+    from repro_torch.utils.tree import tree_map
+    return dataclasses.replace(
+        state, params=tree_map(lambda t: t.clone(), state.params),
+        opt=tree_map(lambda t: t.clone(), state.opt))
+
+
+def _step_base() -> float:
+    """Start a step's own peak: the bytes allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _step_peak(base) -> dict:
+    import torch
+    torch.cuda.synchronize()
+    top = torch.cuda.max_memory_allocated()
+    return {"peak_gb": top / 1e9, "over_base_gb": (top - base) / 1e9}
+
+
+def _act_spec_step(model, step, state, batch, run, mesh, ref_master, lr,
+                   dev, plain_gb) -> dict:
+    """The step of ``state`` on ``batch`` once more under ``act_spec =
+    P("data", "model", None)`` (its masters against ``ref_master``, the
+    meshless step's), its own peak beside ``plain_gb`` (the same step
+    without it), and a planted fault on a copy of the state: the layer
+    gather's gradient sliced where each rank's share must be summed."""
+    from repro_torch.train.train_step import state_spec
+    from repro_torch.utils import sharding as SH
+    model.act_spec = SH.P("data", "model", None)
+    try:
+        bad = _clone_state(state)
+        gather_seq = SH.gather_seq
+        SH.gather_seq = lambda x, dim, axes, mesh_, grad="sum": gather_seq(
+            x, dim, axes, mesh_, grad="slice")
+        try:
+            _, fault, _ = run(step, bad, batch)
+        finally:
+            SH.gather_seq = gather_seq
+        del bad
+        base = _step_base()
+        state, m, ms = run(step, state, batch)
+        mine = _step_peak(base)
+        mean_d, max_d = _gathered_distance(
+            state.opt["master"], state_spec(model).opt["master"], mesh,
+            ref_master, lr, dev)
+    finally:
+        model.act_spec = None
+    return {"metrics": m, "step_ms": ms, "memory": mine,
+            "memory_without": plain_gb,
+            "master_mean_abs_diff_over_lr": mean_d,
+            "master_max_abs_diff_over_lr": max_d, "fault": fault}
+
+
 def lm_mesh_gloo_rank(rank: int) -> int:
     """One rank of phase 11(b) (``chip_smoke.py --lm-mesh-rank R``)."""
     import dataclasses
@@ -3520,10 +3847,15 @@ def lm_mesh_gloo_rank(rank: int) -> int:
         step = make_train_step(model, opt_cfg, microbatches=mb,
                                dp_spec="data", grad_spec=model.param_spec())
         metrics, walls = [], []
-        for b in batches[:n]:
+        for i, b in enumerate(batches[:n]):
+            if mb == 1 and i == n - 1:     # act_spec's step starts here
+                before_last = _clone_state(state)
+                base_gb = _step_base()
             state, m, ms = run(step, state, b)
             metrics.append(m)
             walls.append(ms)
+            if mb == 1 and i == n - 1:
+                step_gb = _step_peak(base_gb)
         mean_d, max_d = _gathered_distance(
             state.opt["master"], state_spec(model).opt["master"], mesh,
             None if ref_masters is None else ref_masters[n - 1],
@@ -3538,7 +3870,15 @@ def lm_mesh_gloo_rank(rank: int) -> int:
                 state, meta["fault_train"], _ = run(step, state, batches[n])
             finally:
                 SH.reduce_to = orig
-        del model, state, step
+            del state
+            meta["act_spec"] = _act_spec_step(
+                model, step, before_last, batches[n - 1], run, mesh,
+                None if ref_masters is None else ref_masters[n - 1],
+                opt_cfg.peak_lr, dev, step_gb)
+            del before_last
+        else:
+            del state
+        del model, step
         peak(f"train mb{mb}")
     del ref_masters
 
@@ -3632,6 +3972,57 @@ def lm_mesh_gloo_rank(rank: int) -> int:
     meta["ring_fault"] = _halves(k_bad, want_k, (want_k, f32_k))
     del ring, k, k_bad
     peak("ring prefill")
+
+    # 4. the ring's train step: Granite-8B at LM_RING_LAYERS layers, one
+    # step with attn_impl="ring" over "model" against rank 0's meshless
+    # chunked step from the same seed; then a step with a planted fault
+    # (the gathered ring output's gradient summed over "model" where every
+    # rank computed the same rows and it must be sliced)
+    tdata = SyntheticTokens(gcfg.vocab_size, LM_RING_TRAIN_SEQ,
+                            LM_RING_TRAIN_BATCH, seed=TRAIN_SEED)
+    tbatches = [masked_batch(tdata, i, TRAIN_SEED) for i in range(2)]
+
+    def fresh_ring(on_mesh):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(TRAIN_SEED)
+        model = DenseLM(dataclasses.replace(
+            gcfg, attn_impl="ring" if on_mesh else "chunked"), device=dev,
+            generator=gen)
+        if on_mesh:
+            model.ring_mesh = mesh
+            model.to_mesh(mesh)
+        return model, init_train_state(model)
+    ring_ref_masters = None
+    if rank == 0:
+        model, state = fresh_ring(False)
+        step = make_train_step(model, opt_cfg)
+        meta["ring_train_meshless"] = []
+        for i, b in enumerate(tbatches):
+            state, m, _ = run(step, state, b)
+            meta["ring_train_meshless"].append(m)
+            if i == 0:
+                ring_ref_masters = {n: x.cpu() for n, x in
+                                    flatten_with_paths(state.opt["master"])}
+        del model, state, step
+    model, state = fresh_ring(True)
+    step = make_train_step(model, opt_cfg, dp_spec="data",
+                           grad_spec=model.param_spec())
+    state, m, ms = run(step, state, tbatches[0])
+    mean_d, max_d = _gathered_distance(
+        state.opt["master"], state_spec(model).opt["master"], mesh,
+        ring_ref_masters, opt_cfg.peak_lr, dev)
+    meta["ring_train"] = {"metrics": m, "step_ms": ms,
+                          "master_mean_abs_diff_over_lr": mean_d,
+                          "master_max_abs_diff_over_lr": max_d}
+    gather_seq = SH.gather_seq
+    SH.gather_seq = lambda x, dim, axes, mesh_, grad="sum": gather_seq(
+        x, dim, axes, mesh_, grad="sum")
+    try:
+        _, meta["ring_train_fault"], _ = run(step, state, tbatches[1])
+    finally:
+        SH.gather_seq = gather_seq
+    del model, state, step, ring_ref_masters
+    peak("ring train")
     meta["launches"] = launch_counts()
     meta["rank_s"] = time.perf_counter() - t_rank
     (LM_MESH_DIR / f"rank{rank}.json").write_text(json.dumps(meta))
@@ -3710,6 +4101,30 @@ def lm_mesh_gloo_phase():
             fail(f"lm mesh rank {r}: the planted ring fault (no query "
                  f"offset) does not show on the second half alone: "
                  f"{meta['ring_fault']}")
+    # act_spec's step 2 against the meshless step 2; the ring's train
+    # step against rank 0's meshless chunked one; each planted fault
+    ring_ref = metas[0]["ring_train_meshless"]
+    for meta in metas:
+        r = meta["rank"]
+        for key in ("act_spec", "ring_train"):
+            if meta[key]["metrics"] != metas[0][key]["metrics"]:
+                fail(f"lm mesh rank {r} {key}: metrics differ from rank 0's")
+    checks = (("act_spec", metas[0]["act_spec"], ref[LM_GLOO_STEPS - 1],
+               metas[0]["act_spec"]["fault"], ref[LM_GLOO_STEPS - 1]),
+              ("ring_train", metas[0]["ring_train"], ring_ref[0],
+               metas[0]["ring_train_fault"], ring_ref[1]))
+    new_faults = {}
+    for key, got, want, bad, bad_want in checks:
+        m = got["metrics"]
+        if _rel(m["grad_norm"], want["grad_norm"]) > MB_GNORM_RTOL or \
+                abs(m["loss"] - want["loss"]) > abs(want["loss"]) * \
+                LM_LOSS_RTOL or \
+                got["master_mean_abs_diff_over_lr"] > MB_UPDATE_TOL:
+            fail(f"lm mesh {key}: {got} against the meshless {want}")
+        new_faults[key] = _rel(bad["grad_norm"], bad_want["grad_norm"])
+        if new_faults[key] <= MB_GNORM_RTOL:
+            fail(f"lm mesh {key}: the planted fault is within the limits: "
+                 f"{bad} against {bad_want}")
     fault = metas[0]["fault_train"]
     fault_rejected = _rel(fault["grad_norm"],
                           ref[LM_GLOO_STEPS]["grad_norm"]) > MB_GNORM_RTOL
@@ -3727,6 +4142,16 @@ def lm_mesh_gloo_phase():
                            "grad_norm_meshless":
                                ref[LM_GLOO_STEPS]["grad_norm"],
                            "rejected": fault_rejected},
+           "act_spec": metas[0]["act_spec"],
+           "act_spec_fault": {"fault": "the layer gather's gradient sliced "
+                                       "where it must be summed",
+                              "grad_norm_rel_err": new_faults["act_spec"]},
+           "ring_train": metas[0]["ring_train"],
+           "ring_train_meshless": ring_ref,
+           "ring_train_fault": {"fault": "the ring output's gradient "
+                                         "summed where it must be sliced",
+                                "grad_norm_rel_err":
+                                    new_faults["ring_train"]},
            "ckpt": metas[0]["ckpt"], "ckpt_save_ms": metas[0]["ckpt_save_ms"],
            "ring": [m["ring"] for m in metas],
            "ring_fault": [m["ring_fault"] for m in metas],
@@ -3736,6 +4161,39 @@ def lm_mesh_gloo_phase():
                    "measure"}
     log("lm mesh gloo " + json.dumps(out))
     return out, launches
+
+
+# -------------------------------------------------------------- phase 12
+#
+# The dry run on the card's host (``launch/dryrun.py``: one rank, meta
+# tensors, in the host-work helper): its predicted peak for phase 8's
+# train step and phase 6's first request against what they measured,
+# within DRYRUN_PEAK_TOL, and a planted fault outside it.
+
+def dryrun_phase(helper, train_row, serve_rows) -> dict:
+    t0 = time.perf_counter()
+    pred = json.loads(host_work_wait(helper, "dryrun.json").read_text())
+    o, _ = helper.communicate(timeout=HOST_WORK_DEADLINE_S)
+    if helper.returncode != 0:
+        fail(f"host work exited {helper.returncode}:\n{o[-3000:]}")
+    measured = {"train": train_row["max_memory_allocated_gb"],
+                "serve": serve_rows[0]["max_memory_allocated_gb"]}
+    out = {"seconds": pred["seconds"], "tol": DRYRUN_PEAK_TOL}
+    for tag, got in measured.items():
+        p = pred[tag]
+        rel = (p["peak_gb"] - got) / got
+        fault_rel = (p["fault_peak_gb"] - got) / got
+        row = dict(p, measured_gb=got, rel_err=rel, fault_rel_err=fault_rel)
+        if abs(rel) > DRYRUN_PEAK_TOL:
+            fail(f"dry run: the predicted {tag} peak {p['peak_gb']:.2f} GB "
+                 f"is {rel:+.1%} off the measured {got:.2f} GB")
+        if abs(fault_rel) <= DRYRUN_PEAK_TOL:
+            fail(f"dry run: the planted fault ({p['fault']}) is within the "
+                 f"limit: {row}")
+        out[tag] = row
+    out["phase_s"] = time.perf_counter() - t0
+    log("dryrun " + json.dumps(out))
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -3847,13 +4305,18 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
+    # the host's own work in helper processes beside the card's phases:
+    # the dry run and HITS's oracle (read by phases 7 and 12), and the
+    # main-path graph's host build (read after phase 9)
+    helper = host_work_start()
+    graph_helper = host_work_start("--host-graph", HOST_GRAPH_DIR)
+
     # 1. build
     sass = build_all()
 
     # graphs (host build; the main-path graph is reused by phases 2 and 4)
     g3 = identifier_graph(PHASE3_LOG2V, seed=0)
     g_small = identifier_graph(BITSET_LOG2V, seed=1)
-    g4 = identifier_graph(MAIN_LOG2V, seed=3)
 
     # 2. kernel vs plain on the card
     gen = torch.Generator(device="cuda")
@@ -3877,6 +4340,52 @@ def main() -> int:
         nbr, mask, w, _ = _holey(v, k, off, gen)
         check_batched(f"holes {v}x{k}, rows off 16 B by {off}", nbr, mask,
                       w, gen, (1, 3, 16, 33), False, checks)
+    check_intersect_rows(checks)
+    check_flash(checks)
+    for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200)):
+        nbr, mask, w = _ragged(v, k, gen)
+        check_combine(f"ragged {v}x{k}", nbr, mask, w,
+                      torch.rand(v, generator=gen, device="cuda"), False,
+                      checks)
+    for v, k, off in ((1000, 7, 3), (4096, 128, 0), (500, 129, 5),
+                      (40, 3000, 1)):
+        check_combine(f"holes {v}x{k}, rows off 16 B by {off}",
+                      *_holey(v, k, off, gen), False, checks)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 2's small "
+        "checks done")
+
+    # 6, 8, 9. the LM phases, while the main-path graph builds on the host
+    # (each path's counts are reset inside, just before it)
+    paths = {}
+    paths[SERVE_PATH], serve_rows, serve_ref = serve_phase()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 6 done")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths[TRAIN_PATH], train_row, train_ref = train_phase(card)
+    restart_row = restart_phase(card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 8 done")
+    family_rows = []
+    t_phase = time.perf_counter()
+    for run in FAMILY_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[family_path(run[0])], row = family_phase(*run)
+        family_rows.append(row)
+    log(f"families: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 9 done")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 (main shapes). the main-path graph from its helper process
+    t0 = time.perf_counter()
+    built = json.loads(host_work_wait(graph_helper, "g4.json").read_text())
+    g4 = torch.load(HOST_GRAPH_DIR / "g4.pt", weights_only=False).to("cuda")
+    graph_helper.wait()
+    import shutil
+    shutil.rmtree(HOST_GRAPH_DIR, ignore_errors=True)
+    log(f"graph V=2^{MAIN_LOG2V}=2**{MAIN_LOG2V} seed=3: {g4.n_edges} "
+        f"directed edges, host build {built['seconds']:.1f} s beside phases "
+        f"2-9 (waited and loaded {time.perf_counter() - t0:.1f} s)")
     # the main-shape layouts, and the 2^24 one under a seeded permutation
     # of its ids (production ids carry no locality; the identifier
     # graph's small id offsets make its gathers nearly sequential)
@@ -3901,21 +4410,15 @@ def main() -> int:
         else:
             del ell
     torch.cuda.empty_cache()
-    check_intersect_rows(checks)
-    check_flash(checks)
-    for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200)):
-        nbr, mask, w = _ragged(v, k, gen)
-        check_combine(f"ragged {v}x{k}", nbr, mask, w,
-                      torch.rand(v, generator=gen, device="cuda"), False,
-                      checks)
-    for v, k, off in ((1000, 7, 3), (4096, 128, 0), (500, 129, 5),
-                      (40, 3000, 1)):
-        check_combine(f"holes {v}x{k}, rows off 16 B by {off}",
-                      *_holey(v, k, off, gen), False, checks)
+
+    # phase 5's OrientedELL of the permuted ids and phase 7's graphs,
+    # built on the host beside phases 3-10
+    pre = Prebuilt({"oriented_perm": lambda: permuted_oriented(g4, perm),
+                    "lpa": lambda: identifier_graph(SLICE_LOG2V, seed=4),
+                    "hits": hits_graph})
 
     # 3-5. the paths; every count is set to 0 just before a path runs
     # and read just after it
-    paths = {}
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 2 done")
     reset_counts()
     engine_rows, eng3 = engine_phase(g3, g_small)
@@ -3937,16 +4440,13 @@ def main() -> int:
     # derived state (launches here are checks, not a path's)
     check_intersect_main(plat.local.oriented, checks,
                          f"OrientedELL 2^{MAIN_LOG2V}")
-    from repro_torch.core import graph as G
-    src, dst = _host_edges(g4)
-    p = perm.cpu().numpy()
     t0 = time.perf_counter()
-    o_perm = G.build_oriented_ell(p[src], p[dst], g4.n_vertices)
-    log(f"OrientedELL of the permuted ids: host build "
-        f"{time.perf_counter() - t0:.1f} s")
+    o_perm, build_s = pre.get("oriented_perm")
+    log(f"OrientedELL of the permuted ids: host build {build_s:.1f} s "
+        f"(beside phases 3-4; waited {time.perf_counter() - t0:.1f} s)")
     check_intersect_main(o_perm, checks,
                          f"OrientedELL 2^{MAIN_LOG2V} permuted ids")
-    del o_perm, src, dst, p, perm
+    del o_perm, perm
     check_combine(f"capped ELL 2^{MAIN_LOG2V}", ell.nbr, ell.mask, ell.w, x,
                   True, checks, path_out=outs)
     del ell, outs
@@ -3979,8 +4479,8 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 10 done")
     t_phase = time.perf_counter()
     reset_counts()
-    for run in (two_hop_phase, lambda: lpa_phase(g3), hits_phase, etl_phase,
-                cli_phase):
+    for run in (two_hop_phase, lambda: lpa_phase(g3, pre),
+                lambda: hits_phase(helper, pre), etl_phase, cli_phase):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3993,30 +4493,6 @@ def main() -> int:
     log(f"slice: phase 7 took "
         f"{fusion_s + time.perf_counter() - t_phase:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 7 done")
-
-    # 6. LM serving (the counts are reset inside, just before the path)
-    paths[SERVE_PATH], serve_rows, serve_ref = serve_phase()
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 6 done")
-
-    # 8. LM training (the counts are reset inside, just before the path),
-    # then the restart path in processes of its own
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths[TRAIN_PATH], train_row, train_ref = train_phase(card)
-    restart_row = restart_phase(card)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 8 done")
-
-    # 9. the other LM families, one model at a time (the counts are reset
-    # inside, just before each model's path)
-    family_rows = []
-    t_phase = time.perf_counter()
-    for run in FAMILY_RUNS:
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths[family_path(run[0])], row = family_phase(*run)
-        family_rows.append(row)
-    log(f"families: phase 9 took {time.perf_counter() - t_phase:.1f} s")
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 9 done")
 
     # 11. the LM on a device mesh (the counts are reset inside, just
     # before each mesh path)
@@ -4032,6 +4508,11 @@ def main() -> int:
     lm_mesh_rows = {"nccl_1x1": lm_nccl, "gloo_2x2": lm_gloo}
     log(f"lm mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 11 done")
+
+    # 12. the dry run's predicted peaks (computed by the host-work helper
+    # beside the card's phases) against phases 8 and 6
+    dry_row = dryrun_phase(helper, train_row, serve_rows)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 12 done")
     must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
                 ("pregel_superstep", "ell_intersect"),
             FORCED_BATCH_PATH: ("pregel_superstep_batched",),
@@ -4084,7 +4565,7 @@ def main() -> int:
         "spmv": spmv_rows, "slice": slice_rows, "serve": serve_rows,
         "train": train_row, "restart": restart_row,
         "families": family_rows, "mesh": mesh_rows,
-        "lm_mesh": lm_mesh_rows,
+        "lm_mesh": lm_mesh_rows, "dryrun": dry_row,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4161,7 +4642,8 @@ def main() -> int:
 
 def mesh_worker_main(argv) -> int:
     """``chip_smoke.py --mesh-rank R``: one rank of phase 10(b);
-    ``--lm-mesh-rank R``: one of phase 11(b)."""
+    ``--lm-mesh-rank R``: one of phase 11(b); ``--host-work DIR``: the
+    host-work helper; ``--host-graph DIR``: the 2^24 graph's helper."""
     import torch
     if not torch.cuda.is_available() or \
             not (ROOT / "src" / "repro_torch").is_dir():
@@ -4174,14 +4656,24 @@ def mesh_worker_main(argv) -> int:
                       ("--lm-mesh-rank", lm_mesh_gloo_rank)):
         if flag in argv:
             return run(int(argv[argv.index(flag) + 1]))
+    if "--host-work" in argv:
+        return host_work_main(argv[argv.index("--host-work") + 1])
+    if "--host-graph" in argv:
+        return host_graph_main(argv[argv.index("--host-graph") + 1])
     return 2
 
 
 if __name__ == "__main__":
     try:
-        if "--mesh-rank" in sys.argv or "--lm-mesh-rank" in sys.argv:
+        if any(f in sys.argv for f in ("--mesh-rank", "--lm-mesh-rank",
+                                       "--host-work", "--host-graph")):
             sys.exit(mesh_worker_main(sys.argv))
         sys.exit(main())
     except Exception:
         traceback.print_exc()
         sys.exit(1)
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -163,6 +163,13 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """The reference's skip rules (its DESIGN §Arch-applicability)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k skipped: pure full-attention architecture"
+    return True, ""
+
+
 def reduced_config(cfg: ModelConfig, n_layers: int = 2, d_model: int = 64,
                    n_heads: int = 4, vocab: int = 128) -> ModelConfig:
     """Shrink to smoke-test size, preserving structure."""

@@ -39,6 +39,7 @@ import torch
 from repro_torch.core.partition import ShardedCOO
 from repro_torch.kernels.pregel_superstep import ops as superstep_ops
 from repro_torch.kernels.pregel_superstep.ref import as_dtype, superstep_plain
+from repro_torch.utils.roofline import count_collective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -390,6 +391,7 @@ def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     import torch.distributed as dist
     x = x.contiguous()
     dist.all_reduce(x, op=getattr(dist.ReduceOp, _DIST_OPS[op]), group=group)
+    count_collective("all-reduce", x.nbytes, group)
     return x
 
 
@@ -403,6 +405,7 @@ def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather(list(out.chunk(n)), x, group=group)
+    count_collective("all-gather", out.nbytes, group)
     return out
 
 

@@ -28,6 +28,14 @@ module is that service tier:
   started yet.  Per-ticket results are byte-identical to a serial
   ``drain()`` — the fusion contract (slices bit-identical to solo runs)
   makes results order-independent.
+* **On a device mesh** (SPMD, one process a rank) every rank runs the
+  same program, so every rank must run the same units in the same
+  order.  ``submit``'s decisions (admission, tier, spill, backpressure)
+  and each unit ``drain`` dequeues are rank ``(0, 0)``'s, broadcast
+  along ``data`` then ``model`` as the plan is; worker threads
+  (``workers >= 2``) are refused with ``ValueError``, since they would
+  issue collectives in a rank-dependent order.  Meshless services
+  schedule as before.
 * **Retry & dead-letter** — a failed execution retries under the
   service's :class:`~repro_torch.core.runtime.RetryPolicy` (jittered
   exponential backoff, deterministic per ticket given the service
@@ -492,6 +500,13 @@ class _WorkUnit:
         return (id(self.tickets[0].context), self.pool, self.engine)
 
 
+_THREADS_ON_A_MESH = (
+    "drain(workers={n}) on a service with a device-mesh context: worker "
+    "threads would issue the mesh's collectives in an order that differs "
+    "from rank to rank; drain with workers=1 (every rank runs rank "
+    "(0, 0)'s schedule)")
+
+
 class GraphAnalyticsService:
     """Catalog + admission + concurrent runtime + fusion over
     GraphContexts.
@@ -612,6 +627,10 @@ class GraphAnalyticsService:
         if self.tracer is not None:
             obs.install_observer(self.tracer)
         self._accuracy = obs.PlanAccuracyMeter()
+        # the device mesh of the service's mesh contexts (one a service)
+        # and this rank's place on it: the schedule's broadcast
+        self._mesh = None
+        self._mesh_axes = None
 
     # -- tier thresholds ----------------------------------------------------
     @property
@@ -645,6 +664,11 @@ class GraphAnalyticsService:
         ``cache_size=0`` disables plan caching alongside result caching.
         ``device`` places the snapshot and its engines (``None``: the
         first CUDA device; pass ``"cpu"`` to run on the host)."""
+        if mesh is not None and self.workers >= 2:
+            raise ValueError(_THREADS_ON_A_MESH.format(n=self.workers))
+        if mesh is not None and self._mesh not in (None, mesh):
+            raise ValueError("add_graph: this service already runs on "
+                             "another mesh; one mesh a service")
         declared = (self.pools.names() if pools is None
                     else self.pools.validate_names(pools))
         ctx = GraphContext(coo, mesh=mesh, n_data=n_data, n_model=n_model,
@@ -665,6 +689,8 @@ class GraphAnalyticsService:
             self._catalog[name] = ctx
             self._name_pools[name] = tuple(declared)
             self._refresh_residency(ctx)
+            if mesh is not None and self._mesh is None:
+                self._mesh, self._mesh_axes = mesh, ctx._axes
             return ctx
 
     def remove_graph(self, name: str) -> None:
@@ -972,86 +998,120 @@ class GraphAnalyticsService:
             seed = None
         est = P.plan_cost(plan)
         with self._lock:
-            # an infinite estimate means the planner itself declared the
-            # (forced/clamped) engine infeasible — reject even under the
-            # default infinite budget, where `inf > inf` would admit it
-            if est > self.admission_budget_s or est == float("inf"):
-                self.stats["rejected"] += 1
-                if self.tracer is not None:
-                    self.tracer.record_event("admission-rejected", {
-                        "graph": graph_name, "algorithm": q.algorithm,
-                        "est_s": est, "budget_s": self.admission_budget_s})
-                raise AdmissionRejected(graph_name, q, plan, est,
-                                        self.admission_budget_s)
-            tier = ("interactive" if est <= self.interactive_threshold_s
-                    else "batch")
-            planned = plan
-            if tier == "batch":
-                plan = self._maybe_spill(ctx, q, plan)
-            budget = self._tier_depth.get(tier)
-            if budget is not None:
-                depth = self._queue_depth(plan.engine, tier)
-                if depth >= budget:
-                    self.stats["backpressure"] += 1
-                    if self.tracer is not None:
-                        self.tracer.record_event("backpressure", {
-                            "graph": graph_name,
-                            "algorithm": q.algorithm, "tier": tier,
-                            "depth": depth, "budget": budget})
-                    raise RT.Backpressure(graph_name, q, plan.engine,
-                                          tier, depth, budget)
-            defn = R.get(q.algorithm)
-            fusable = defn.fusable and plan.mode == "full"
-            ticket = QueryTicket(
-                self._next_ticket, graph_name, q, plan, tier, est,
-                context=ctx,
-                fuse_key=self._fuse_key(defn, q) if fusable else None,
-                queued_at=time.perf_counter(),
-                pool=plan.pool,
-                seed=seed)
-            self._next_ticket += 1
-            self._tickets[ticket.ticket_id] = ticket
-            self._queues.setdefault((plan.pool, plan.engine, tier),
-                                    deque()).append(ticket)
-            self.stats["submitted"] += 1
-            if self.tracer is not None:
-                original = None
-                if plan is not planned:    # _maybe_spill re-placed it
-                    original = {"pool": planned.pool,
-                                "engine": planned.engine,
-                                "variant": planned.variant,
-                                "est_s": planned.est_s}
-                self.tracer.on_submit(
-                    ticket, ticket.queued_at,
-                    admission={"est_s": est,
-                               "budget_s": self.admission_budget_s,
-                               "threshold_s": self.interactive_threshold_s,
-                               "tier": tier},
-                    plan_attrs={"engine": plan.engine,
-                                "variant": plan.variant,
-                                "pool": plan.pool, "mode": plan.mode,
-                                "est_s": P.plan_cost(plan),
-                                "reason": plan.reason},
-                    candidates=plan.candidates,
-                    original_placement=original)
-            self._cond.notify_all()       # wake a parked worker
-            return ticket
+            decision = self._admit(ctx, q, plan, est)
+            if ctx._axes is None:
+                return self._enqueue(ctx, graph_name, q, plan, seed,
+                                     decision)
+        # on a mesh every rank decides, and all take rank (0, 0)'s
+        # decision: the thresholds and queue depths it rests on may differ
+        decision = ctx._axes.broadcast_object(decision)
+        with self._lock:
+            return self._enqueue(ctx, graph_name, q, plan, seed, decision)
 
-    def _maybe_spill(self, ctx: GraphContext, q, plan: P.Plan) -> P.Plan:
+    def _admit(self, ctx: GraphContext, q, plan: P.Plan, est: float):
+        """Admission, tier, spill and backpressure for one planned query
+        (caller holds the lock), as a picklable decision: ``(outcome,
+        est, tier, plan, spill, depth, budget)``, outcome ``"rejected"``,
+        ``"backpressure"`` or ``"admitted"``; ``spill`` is ``(pool,
+        depth, capacity)`` where the plan was re-placed, else None."""
+        # an infinite estimate means the planner itself declared the
+        # (forced/clamped) engine infeasible — reject even under the
+        # default infinite budget, where `inf > inf` would admit it
+        budget_s = self.admission_budget_s
+        if est > budget_s or est == float("inf"):
+            return ("rejected", est, None, plan, None, None, budget_s)
+        tier = ("interactive" if est <= self.interactive_threshold_s
+                else "batch")
+        spill = None
+        if tier == "batch":
+            placed, spill = self._maybe_spill(ctx, q, plan)
+            if spill is not None:
+                plan = placed
+        budget = self._tier_depth.get(tier)
+        if budget is not None:
+            depth = self._queue_depth(plan.engine, tier)
+            if depth >= budget:
+                return ("backpressure", est, tier, plan, spill, depth,
+                        budget)
+        return ("admitted", est, tier, plan, spill, None, None)
+
+    def _enqueue(self, ctx: GraphContext, graph_name: str, q,
+                 planned: P.Plan, seed, decision) -> QueryTicket:
+        """Carry out ``_admit``'s decision (caller holds the lock): count
+        it, raise where it refused, else queue the ticket."""
+        outcome, est, tier, plan, spill, depth, budget = decision
+        if outcome == "rejected":
+            self.stats["rejected"] += 1
+            if self.tracer is not None:
+                self.tracer.record_event("admission-rejected", {
+                    "graph": graph_name, "algorithm": q.algorithm,
+                    "est_s": est, "budget_s": budget})
+            raise AdmissionRejected(graph_name, q, plan, est, budget)
+        if spill is not None:
+            self.stats["spilled"] += 1
+            self._pool_spills[spill[0]] += 1
+        if outcome == "backpressure":
+            self.stats["backpressure"] += 1
+            if self.tracer is not None:
+                self.tracer.record_event("backpressure", {
+                    "graph": graph_name,
+                    "algorithm": q.algorithm, "tier": tier,
+                    "depth": depth, "budget": budget})
+            raise RT.Backpressure(graph_name, q, plan.engine,
+                                  tier, depth, budget)
+        defn = R.get(q.algorithm)
+        fusable = defn.fusable and plan.mode == "full"
+        ticket = QueryTicket(
+            self._next_ticket, graph_name, q, plan, tier, est,
+            context=ctx,
+            fuse_key=self._fuse_key(defn, q) if fusable else None,
+            queued_at=time.perf_counter(),
+            pool=plan.pool,
+            seed=seed)
+        self._next_ticket += 1
+        self._tickets[ticket.ticket_id] = ticket
+        self._queues.setdefault((plan.pool, plan.engine, tier),
+                                deque()).append(ticket)
+        self.stats["submitted"] += 1
+        if self.tracer is not None:
+            original = None
+            if spill is not None:          # _maybe_spill re-placed it
+                original = {"pool": planned.pool,
+                            "engine": planned.engine,
+                            "variant": planned.variant,
+                            "est_s": planned.est_s}
+            self.tracer.on_submit(
+                ticket, ticket.queued_at,
+                admission={"est_s": est,
+                           "budget_s": self.admission_budget_s,
+                           "threshold_s": self.interactive_threshold_s,
+                           "tier": tier},
+                plan_attrs={"engine": plan.engine,
+                            "variant": plan.variant,
+                            "pool": plan.pool, "mode": plan.mode,
+                            "est_s": P.plan_cost(plan),
+                            "reason": plan.reason},
+                candidates=plan.candidates,
+                original_placement=original)
+        self._cond.notify_all()       # wake a parked worker
+        return ticket
+
+    def _maybe_spill(self, ctx: GraphContext, q, plan: P.Plan):
         """Batch-tier spill (caller holds the lock): when the planned
         pool's batch queue is at the pool's ``capacity``, re-place onto
         the cheapest other healthy pool where the snapshot is resident
         and whose own batch queue has room.  No candidate (or no
         capacity configured) keeps the original plan — spill sheds
-        load, it never strands a query."""
+        load, it never strands a query.  Returns ``(plan, spill)``,
+        ``spill`` = ``(pool, depth, capacity)`` where it re-placed."""
         if plan.pool is None or len(self.pools) < 2:
-            return plan
+            return plan, None
         pool = self.pools.get(plan.pool)
         if pool.capacity is None:
-            return plan
+            return plan, None
         depth = self._pool_batch_depth(plan.pool)
         if depth < pool.capacity:
-            return plan
+            return plan, None
         resident = ctx.residency
         cands = [p.name for p in self.pools
                  if p.healthy and p.name != plan.pool
@@ -1059,17 +1119,16 @@ class GraphAnalyticsService:
                  and (p.capacity is None
                       or self._pool_batch_depth(p.name) < p.capacity)]
         if not cands:
-            return plan
+            return plan, None
         try:
             spilled = ctx.plan_for_pools(q, cands)
         except ValueError:
-            return plan
-        self.stats["spilled"] += 1
-        self._pool_spills[plan.pool] += 1
+            return plan, None
         return dataclasses.replace(
             spilled,
             reason=f"spilled from {plan.pool} (batch depth {depth} >= "
-                   f"capacity {pool.capacity}); {spilled.reason}")
+                   f"capacity {pool.capacity}); {spilled.reason}"), \
+            (plan.pool, depth, pool.capacity)
 
     def _queue_depth_key(self, key: tuple) -> int:
         """Live (still-queued) depth of one queue — resolved-out-of-band
@@ -1108,11 +1167,15 @@ class GraphAnalyticsService:
         the serial schedule (the fusion/caching contracts make results
         order-independent)."""
         n = self.workers if workers is None else max(int(workers), 1)
+        if n >= 2 and self._mesh_axes is not None:
+            raise ValueError(_THREADS_ON_A_MESH.format(n=n))
         finished: list[QueryTicket] = []
         if n == 1:
             while True:
                 with self._lock:
                     unit = self._next_unit()
+                    if self._mesh_axes is not None:
+                        unit = self._agreed_unit(unit)
                 if unit is None:
                     break
                 try:
@@ -1325,6 +1388,44 @@ class GraphAnalyticsService:
                         return _WorkUnit("group", engine, group,
                                          pool=pool)
         return None
+
+    def _agreed_unit(self, unit: Optional[_WorkUnit]) \
+            -> Optional[_WorkUnit]:
+        """On a mesh: the unit rank ``(0, 0)`` dequeued, on every rank
+        (caller holds the lock).  Each rank dequeued its own; rank ``(0,
+        0)``'s ``(kind, engine, pool, ticket ids)`` is broadcast as the
+        plan is, and a rank whose own choice differs puts its tickets
+        back and takes those named, so every rank runs the same units
+        in the same order."""
+        desc = None if unit is None else (
+            unit.kind, unit.engine, unit.pool,
+            [t.ticket_id for t in unit.tickets])
+        agreed = self._mesh_axes.broadcast_object(desc)
+        if agreed == desc:
+            return unit
+        if unit is not None:                 # undo this rank's own choice
+            self._pool_gate.release(unit.pool)
+            for t in reversed(unit.tickets):
+                t.status = "queued"
+                self._queues[(unit.pool, unit.engine, t.tier)].appendleft(t)
+        if agreed is None:
+            raise RuntimeError("the mesh's ranks disagree on the queue: "
+                               "rank (0, 0) has no work left")
+        kind, engine, pool, ids = agreed
+        tickets = []
+        for tid in ids:
+            t = self._tickets.get(tid)
+            if t is None or t.status != "queued":
+                raise RuntimeError(f"the mesh's ranks disagree on the "
+                                   f"queue: ticket #{tid} is not queued "
+                                   "here")
+            self._queues[(t.pool, t.plan.engine, t.tier)].remove(t)
+            t.status = "running"
+            tickets.append(t)
+        self._pool_gate.try_acquire(pool)
+        if self.tracer is not None:
+            self.tracer.on_dequeue(ids)
+        return _WorkUnit(kind, engine, tickets, pool=pool)
 
     def _pool_scan_order(self) -> tuple:
         """Queue-key pool axis in deterministic scan order: the

@@ -12,7 +12,9 @@ world, with axes ``("data", "model")``.
 The backend is explicit: NCCL for ``device_type="cuda"``, gloo for
 ``"cpu"``.  A caller may ask for gloo on ``"cuda"`` by name (several
 ranks on one card: NCCL refuses two ranks on one GPU); nothing falls
-back from NCCL to gloo, or from the card to the host, on its own.
+back from NCCL to gloo, or from the card to the host, on its own.  The
+dry run (``launch/dryrun.py``) builds its meshes on ``"cpu"`` over a
+world of the ``fake`` backend, which moves no byte.
 
 Each rank of a CUDA mesh runs on ``cuda:{local_rank % device_count}``,
 made current with ``torch.cuda.set_device`` before the process group
@@ -90,8 +92,9 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES,
             raise RuntimeError("make_mesh(device_type='cuda'): no CUDA "
                                "device; ask for device_type='cpu'")
         torch.cuda.set_device(_local_rank(rank) % torch.cuda.device_count())
-    elif backend != "gloo":
-        raise ValueError(f"backend {backend!r} on the CPU: only gloo")
+    elif backend not in ("gloo", "fake"):
+        raise ValueError(f"backend {backend!r} on the CPU: only gloo (or "
+                         "the dry run's fake world)")
     init_world(backend, init_method, world_size, rank, timeout_s)
     n = int(np.prod(shape))
     if n != dist.get_world_size():

@@ -85,12 +85,21 @@ class EncDecLM(DenseLM):
         x = x + _sinusoid(x.shape[1], self.cfg.d_model,
                           self.device).to(self.dtype)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=self.device)
+        # act_spec splits the frames too where they divide (1500 does not
+        # over 16: the encoder then runs whole on every rank)
+        seq = self._seq_split()
+        if seq is not None and x.shape[1] % seq.size:
+            seq = None
+        if seq is not None:
+            x = seq.keep(x)
 
         def block(p_l, x):
             return self._enc_block(self._slice(p_l, "enc_layers"), pos, x)
         x = remat_loop([(block, (p_l,)) for p_l in
                         self._slices(params, "enc_layers")], x,
-                       self.cfg.remat and torch.is_grad_enabled())
+                       self.cfg.remat and torch.is_grad_enabled(), seq)
+        if seq is not None:
+            x = seq.gather(x)
         return L.rms_norm(x, params["enc_norm"])
 
     # ------------------------------------------------------------ decoder

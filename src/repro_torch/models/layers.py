@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.utils import sharding as SH
+from repro_torch.utils.roofline import count_collective
 
 NEG_INF = -2.3819763e38  # large negative for masking in f32
 
@@ -244,25 +245,55 @@ def _online_block(q, k, v, qpos, kpos, state, causal, window, softcap,
     return m_p, l_p, acc
 
 
-def _ring_shift(tensors, group, axis_size: int, index: int):
-    """Each tensor of this rank to the next rank of the ring
-    (``index + 1``), the previous rank's in return: one
-    ``batch_isend_irecv`` with every send and receive posted together (a
-    send posted alone waits for its receiver, and every rank would wait)."""
+def _shift(tensors, group, axis_size: int, index: int, step: int):
+    """Each tensor of this rank to rank ``index + step`` of the ring, the
+    tensors of rank ``index - step`` in return: one ``batch_isend_irecv``
+    with every send and receive posted together (a send posted alone
+    waits for its receiver, and every rank would wait)."""
     import torch.distributed as dist
-    nxt = dist.get_global_rank(group, (index + 1) % axis_size)
-    prv = dist.get_global_rank(group, (index - 1) % axis_size)
+    nxt = dist.get_global_rank(group, (index + step) % axis_size)
+    prv = dist.get_global_rank(group, (index - step) % axis_size)
     sends = [SH.wire(t.contiguous(), group) for t in tensors]
     recvs = [torch.empty_like(t) for t in sends]
     ops = [dist.P2POp(dist.isend, t, nxt, group) for t in sends] + \
         [dist.P2POp(dist.irecv, t, prv, group) for t in recvs]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
+    for t in recvs:
+        count_collective("collective-permute", t.nbytes, group)
     return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 
+class _RingShift(torch.autograd.Function):
+    """The ring's shift ``i -> i + 1`` with its transpose as the backward:
+    each incoming gradient goes to the previous rank (``lax.ppermute``'s
+    transpose is the inverse permutation), so dK and dV travel the ring
+    in reverse."""
+
+    @staticmethod
+    def forward(ctx, group, axis_size, index, *tensors):
+        ctx.args = (group, axis_size, index)
+        ctx.like = [(t.shape, t.dtype, t.device) for t in tensors]
+        return tuple(_shift(tensors, group, axis_size, index, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, axis_size, index = ctx.args
+        grads = [torch.zeros(s, dtype=d, device=dev) if g is None else g
+                 for g, (s, d, dev) in zip(grads, ctx.like)]
+        return (None, None, None,
+                *_shift(grads, group, axis_size, index, -1))
+
+
+def _ring_shift(tensors, group, axis_size: int, index: int):
+    """Each tensor of this rank to the next rank of the ring (``index +
+    1``), the previous rank's in return; differentiable."""
+    return list(_RingShift.apply(group, axis_size, index, *tensors))
+
+
 def attn_ring(q, k, v, *, mesh, axis: str = "model", batch_axes=("data",),
-              causal=True, window=0, softcap=0.0, chunk_k: int = 512):
+              causal=True, window=0, softcap=0.0, chunk_k: int = 512,
+              local: bool = False):
     """Ring attention (context parallelism), the reference's ``attn_ring``:
     the sequence of q/k/v is split over the mesh axis ``axis``; each rank
     keeps its chunk of the q rows, the k/v blocks travel the ring ``i ->
@@ -277,13 +308,16 @@ def attn_ring(q, k, v, *, mesh, axis: str = "model", batch_axes=("data",),
     ``shard_map`` splits it) and the whole sequence.  Returns ``[B, S,
     Hq, Dh]`` in q's dtype, gathered back along ``axis`` (what the
     reference's ``out_specs`` reassembles), fully masked rows zero.
-    Forward only: under autograd with an input that requires grad it
-    raises (its backward, dK and dV travelling the ring in reverse, is
-    ROADMAP.md §1 item 1)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("attn_ring is forward only (its backward is "
-                           "ROADMAP.md §1 item 1); train with "
-                           "attn_impl='chunked'")
+    ``local=True``: q/k/v and the result are this rank's chunk of the
+    sequence (``S / M`` positions; the residual stream under
+    ``act_spec``), with no slice at entry and no gather at exit.
+
+    Differentiable: the shifts run backwards in the backward
+    (``_RingShift``) and autograd runs through ``_online_block``.  Every
+    rank along ``axis`` holds q/k/v whole and computes the same rows from
+    the gathered result, so the result's gradient is sliced, not summed
+    (``SH.gather_seq``'s ``"slice"``), and q/k/v's come back whole
+    (``SH.scatter_seq``)."""
     if axis in tuple(batch_axes or ()):
         raise ValueError(f"attn_ring: the ring axis {axis!r} also splits "
                          f"the batch ({tuple(batch_axes)})")
@@ -292,22 +326,27 @@ def attn_ring(q, k, v, *, mesh, axis: str = "model", batch_axes=("data",),
     g = hq // hkv
     M = SH.mesh_sizes(mesh)[axis]
     m = SH.mesh_coords(mesh)[axis]
-    if s % M:
-        raise ValueError(f"attn_ring: a sequence of {s} does not split over "
-                         f"{M} ranks of {axis!r}")
-    s_loc = s // M
-    mine = slice(m * s_loc, (m + 1) * s_loc)
+    if local:
+        s_loc = s
+    else:
+        if s % M:
+            raise ValueError(f"attn_ring: a sequence of {s} does not split "
+                             f"over {M} ranks of {axis!r}")
+        s_loc = s // M
+        # every rank along the axis holds q/k/v whole and alike: each
+        # keeps its chunk, and a gradient comes back whole
+        q, k, v = (SH.scatter_seq(t, 1, (axis,), mesh) for t in (q, k, v))
     # without a causal or window mask the positions go unused, and the
     # reference gives every query position 0
     needs_pos = causal or window != 0
     ar = torch.arange(s_loc, dtype=torch.int32, device=q.device)
     qpos = m * s_loc + ar if needs_pos else torch.zeros_like(ar)
-    qf = (q[:, mine] * torch.tensor(dh ** -0.5, dtype=q.dtype)).reshape(
+    qf = (q * torch.tensor(dh ** -0.5, dtype=q.dtype)).reshape(
         b, s_loc, hkv, g, dh).permute(0, 2, 3, 1, 4)
     state = (torch.full((b, hkv, g, s_loc, 1), NEG_INF, device=q.device),
              torch.zeros((b, hkv, g, s_loc, 1), device=q.device),
              torch.zeros((b, hkv, g, s_loc, dh), device=q.device))
-    kv = [k[:, mine].contiguous(), v[:, mine].contiguous()]
+    kv = [k.contiguous(), v.contiguous()]
     group = mesh.get_group(axis) if M > 1 else None
     for j in range(M):
         src = (m - j) % M if needs_pos else (-j) % M
@@ -319,7 +358,9 @@ def attn_ring(q, k, v, *, mesh, axis: str = "model", batch_axes=("data",),
     _, l_f, acc = state
     out = (acc / torch.where(l_f > 0, l_f, 1.0)).permute(0, 3, 1, 2, 4)
     out = out.reshape(b, s_loc, hq, dh).to(q.dtype)
-    return SH.gather(out, SH.P(None, axis, None, None), mesh)
+    if local:
+        return out
+    return SH.gather_seq(out, 1, (axis,), mesh, grad="slice")
 
 
 # ---------------------------------------------------------------------------

@@ -200,6 +200,7 @@ class MoELM(DenseLM):
         p = self._top(self.params if params is None else params)
         batch, n_tokens = self._mesh_loss_args(batch)
         x, qpos = self._embed_inputs(p, batch)
+        x, qpos, seq = self._seq_entry(x, qpos)
 
         def block(p_l, w, carry):
             x, aux = carry
@@ -209,11 +210,15 @@ class MoELM(DenseLM):
             [(block, (p_l, w)) for p_l, w in zip(self._slices(p),
                                                  self.windows)],
             (x, torch.zeros((), dtype=torch.float32, device=self.device)),
-            cfg.remat and torch.is_grad_enabled())
-        ce, cnt = cross_entropy(self._head(p), x,
-                                batch["labels"].to(self.device), cfg,
-                                vocab_chunk, n_tokens)
+            cfg.remat and torch.is_grad_enabled(), seq)
+        ce, cnt = cross_entropy(self._head(p), self._loss_hidden(x),
+                                self._labels(batch), cfg, vocab_chunk,
+                                n_tokens)
         aux_mean = aux / cfg.n_layers
+        if self._seq_split() is not None:
+            # every rank along the sequence axes computed the layers'
+            # whole aux: its share is 1 / size of it
+            aux_mean = aux_mean / self._seq_split().size
         loss = ce + cfg.router_aux_coef * aux_mean
         return loss, {"loss": loss, "ce": ce, "aux": aux_mean, "tokens": cnt}
 

@@ -42,9 +42,20 @@ compute the same rows.  ``forward``, ``prefill`` and ``decode_step`` take
 and return the global batch; ``loss`` returns this rank's share (the
 shares of the batch ranks sum to the global loss and metrics).  The
 result is the meshless one, up to the order of float sums.
+
+``act_spec`` (the reference's sequence parallelism of the residual
+stream, ``P(dp, "model", None)``) on a mesh keeps the stream between
+layers as this rank's ``S / M`` chunk of the sequence along the axes of
+its second entry (``SeqSplit``): each layer gathers the chunk at entry,
+computes as without it, and keeps its own chunk at exit, so the carry a
+checkpointed layer saves is ``M`` times smaller.  The loss covers the
+rank's own chunk of tokens, so every gradient is the chunk's share and
+is summed over those axes too (``_grad_axes``).  Off a mesh it changes
+nothing, as the reference ignores it.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -136,15 +147,57 @@ def cross_entropy(head, x, targets, cfg, vocab_chunk: int = 8,
                              min=1), cnt
 
 
-def remat_loop(blocks, x, remat: bool):
+def remat_loop(blocks, x, remat: bool, seq=None):
     """Run ``x`` through ``blocks``, each a pair ``(fn, args)`` applied as
     ``x = fn(*args, x)``; under ``remat`` each block is checkpointed (only
-    its inputs are kept: the reference's ``nothing_saveable``)."""
+    its inputs are kept: the reference's ``nothing_saveable``).  ``seq``
+    (a ``SeqSplit``): ``x`` (or a tuple's first entry) is this rank's
+    chunk of the sequence, gathered at each block's entry and cut back
+    to the chunk at its exit."""
     for fn, args in blocks:
+        if seq is not None:
+            fn = seq.wrap(fn)
         x = (checkpoint(fn, *args, x, use_reentrant=False,
                         preserve_rng_state=False)
              if remat else fn(*args, x))
     return x
+
+
+class SeqSplit:
+    """``act_spec`` on a mesh: the residual stream between layers is this
+    rank's chunk of the sequence (dim 1) over the mesh ``axes`` (major
+    first), as the reference's ``with_sharding_constraint`` lays out its
+    layer carry.  ``gather`` at a layer's entry (its gradient summed: each
+    rank's outputs, and so its loss, cover only its own chunk), ``keep``
+    at its exit (the chunk in storage of its own, so the whole is freed)."""
+
+    def __init__(self, mesh, axes):
+        self.mesh = mesh
+        self.axes = tuple(axes)
+        sizes = SH.mesh_sizes(mesh)
+        self.size = math.prod(sizes[a] for a in self.axes)
+
+    def chunk(self, x, dim: int = 1):
+        if x.shape[dim] % self.size:
+            raise ValueError(f"act_spec: a sequence of {x.shape[dim]} does "
+                             f"not split over {self.size} ranks of "
+                             f"{self.axes}")
+        return SH.seq_chunk(x, dim, self.axes, self.mesh)
+
+    def keep(self, x):
+        return self.chunk(x).clone(memory_format=torch.contiguous_format)
+
+    def gather(self, x, dim: int = 1):
+        return SH.gather_seq(x, dim, self.axes, self.mesh, grad="sum")
+
+    def wrap(self, fn):
+        def run(*args):
+            *a, carry = args
+            if isinstance(carry, tuple):
+                out = fn(*a, (self.gather(carry[0]),) + carry[1:])
+                return (self.keep(out[0]),) + tuple(out[1:])
+            return self.keep(fn(*a, self.gather(carry)))
+        return run
 
 
 class DenseLM(nn.Module):
@@ -180,10 +233,10 @@ class DenseLM(nn.Module):
         # the reference's mesh hooks, with its defaults (a launcher sets
         # them): the FSDP axes of ``param_spec`` when ``cfg.fsdp``;
         # ``strip_tp`` takes "model" out of the param specs (MoE keeps
-        # its experts on it); ``act_spec`` (sequence parallelism of the
-        # residual stream) is not ported and raises on a mesh;
-        # ``ring_mesh`` turns ``attn_impl="ring"`` on, its sequence split
-        # over "model", its rows over ``ring_batch_axes``
+        # its experts on it); ``act_spec`` splits the residual stream's
+        # sequence between layers on a mesh (``SeqSplit``); ``ring_mesh``
+        # turns ``attn_impl="ring"`` on, its sequence split over "model",
+        # its rows over ``ring_batch_axes``
         self.act_spec = None
         self.fsdp_axes = ("data",)
         self.strip_tp = False
@@ -266,11 +319,38 @@ class DenseLM(nn.Module):
         self.batch_axes = tuple(a for a in DP if a in mesh.mesh_dim_names)
         return self
 
-    def _check_mesh_hooks(self):
-        if self.mesh is not None and self.act_spec is not None:
-            raise NotImplementedError(
-                "act_spec (sequence parallelism of the residual stream) is "
-                "not ported; ROADMAP.md §1 item 1")
+    def _seq_split(self) -> Optional[SeqSplit]:
+        """``act_spec``'s split of the residual stream (None off a mesh,
+        without ``act_spec``, or where its sequence axes have size 1)."""
+        if self.mesh is None or self.act_spec is None:
+            return None
+        spec = tuple(self.act_spec)
+        sizes = SH.mesh_sizes(self.mesh)
+        axes = tuple(a for a in SH.names(spec[1] if len(spec) > 1 else None)
+                     if sizes[a] > 1)
+        if not axes:
+            return None
+        if set(axes) & set(self.batch_axes):
+            raise ValueError(f"act_spec {spec}: its sequence axes {axes} "
+                             f"also split the batch {self.batch_axes}")
+        return SeqSplit(self.mesh, axes)
+
+    def _ring_on(self) -> bool:
+        return self.cfg.attn_impl == "ring" and self.ring_mesh is not None
+
+    def _grad_axes(self) -> tuple:
+        """The axes a gradient is summed over: the batch axes, and under
+        ``act_spec`` its sequence axes (each rank's share is its chunk's)."""
+        seq = self._seq_split()
+        return self.batch_axes + (() if seq is None else seq.axes)
+
+    def _loss_group(self):
+        """The ranks whose loss shares sum to the global loss (None off a
+        mesh or where one rank holds it all)."""
+        if self.mesh is None:
+            return None
+        g = SH.BatchGroup(self.mesh, self._grad_axes())
+        return g if g.size > 1 else None
 
     def _batch_group(self):
         """The ranks that split the batch's rows (None off a mesh or
@@ -300,8 +380,8 @@ class DenseLM(nn.Module):
         if isinstance(tree, dict):
             return {k: self._gathered(v, spec[k], grad_spec[k])
                     for k, v in tree.items()}
-        return SH.gather_for_compute(tree, spec, self.mesh, self.batch_axes,
-                                     grad_spec)
+        return SH.gather_for_compute(tree, spec, self.mesh,
+                                     self._grad_axes(), grad_spec)
 
     def _slice_spec(self, layout, group: str) -> dict:
         """The spec tree of one slice of the stacked ``group`` (its
@@ -324,7 +404,6 @@ class DenseLM(nn.Module):
     def _top(self, params) -> dict:
         """``params`` with every entry outside the stacked groups (the
         embedding, the head, the final norms) gathered for compute."""
-        self._check_mesh_hooks()
         if self.mesh is None:
             return params
         out = dict(params.items())
@@ -397,16 +476,18 @@ class DenseLM(nn.Module):
         q, k, v = L.qkv_proj(p_l["attn"], h, cfg)
         q = L.rope(q, qpos, cfg.rope_theta)
         k = L.rope(k, qpos, cfg.rope_theta)
-        if cfg.attn_impl == "ring" and self.ring_mesh is not None:
+        if self._ring_on():
             # the reference's context parallelism: the sequence split
-            # over the ring's "model" axis (these rows are the rank's)
+            # over the ring's "model" axis (these rows are the rank's);
+            # under act_spec h is already this rank's chunk
             if cfg.window != 0 or cfg.prefix_len:
                 raise ValueError("ring attention needs window 0 and no "
                                  "prefix-LM zone")
             o = L.attn_ring(q, k, v, mesh=self.ring_mesh,
                             batch_axes=self.ring_batch_axes, causal=True,
                             softcap=cfg.attn_logit_softcap,
-                            chunk_k=min(cfg.attn_chunk, 512))
+                            chunk_k=min(cfg.attn_chunk, 512),
+                            local=self._ring_local())
         else:
             o = L.attention_output(q, k, v, qpos, qpos, cfg.attn_impl,
                                    causal=True, window=window,
@@ -479,27 +560,75 @@ class DenseLM(nn.Module):
         return L.embed_tokens(params, tokens.to(self.device), self.cfg,
                               self.dtype)
 
+    def _ring_local(self) -> bool:
+        """The ring takes the rank's chunk directly (``act_spec`` over the
+        ring's axis): no gather at a layer's entry, no slice in the ring."""
+        seq = self._seq_split()
+        if seq is None or not self._ring_on():
+            return False
+        if seq.axes != ("model",):
+            raise ValueError(f"act_spec splits the sequence over {seq.axes}"
+                             "; the ring runs over ('model',)")
+        return True
+
+    def _seq_entry(self, x, qpos):
+        """Under ``act_spec``: ``x`` cut to this rank's chunk, and where the
+        ring takes the chunk directly its positions too."""
+        seq = self._seq_split()
+        if seq is None:
+            return x, qpos, None
+        if self._ring_local():
+            return seq.keep(x), seq.chunk(qpos, 0), None
+        return seq.keep(x), qpos, seq
+
     def _run_layers(self, params, x, qpos):
         """The layer stack; under autograd and ``cfg.remat`` each layer is
-        checkpointed."""
+        checkpointed.  Under ``act_spec`` ``x`` comes in whole and leaves
+        as this rank's chunk."""
+        x, qpos, seq = self._seq_entry(x, qpos)
+
         def block(p_l, w, x):
             return self._block_train(self._slice(p_l), w, x, qpos)[0]
         return remat_loop([(block, (p_l, w)) for p_l, w in
                            zip(self._slices(params), self.windows)], x,
-                          self.cfg.remat and torch.is_grad_enabled())
+                          self.cfg.remat and torch.is_grad_enabled(), seq)
 
     def _hidden(self, params, batch):
-        """Final hidden states ``[B, S, D]`` at the positions that get
-        logits."""
+        """Final hidden states ``[B, S, D]`` at every position the layers
+        see (this rank's chunk of them under ``act_spec``)."""
         x, qpos = self._embed_inputs(params, batch)
         return self._run_layers(params, x, qpos)
+
+    def _logit_positions(self, h):
+        """The positions of the whole ``_hidden`` that get logits."""
+        return h
+
+    def _pad_labels(self, labels):
+        """``labels`` over every position the layers see (-1 where none)."""
+        return labels
+
+    def _labels(self, batch):
+        """The labels of this rank's positions: its chunk under
+        ``act_spec``."""
+        labels = batch["labels"].to(self.device)
+        seq = self._seq_split()
+        return labels if seq is None else seq.chunk(self._pad_labels(labels))
+
+    def _loss_hidden(self, h):
+        """``_hidden``'s output at the positions ``_labels`` covers."""
+        return h if self._seq_split() is not None \
+            else self._logit_positions(h)
 
     @torch.no_grad()
     def forward(self, batch):
         """Logits ``[B, S, padded_vocab]`` (float32) at every position."""
         p = self._top(self.params)
-        return self._all_rows(L.unembed(
-            p, self._hidden(p, self._rows(batch)), self.cfg))
+        h = self._hidden(p, self._rows(batch))
+        seq = self._seq_split()
+        if seq is not None:
+            h = seq.gather(h)
+        return self._all_rows(L.unembed(p, self._logit_positions(h),
+                                        self.cfg))
 
     # ------------------------------------------------------------- loss
     def _head(self, p) -> dict:
@@ -516,15 +645,16 @@ class DenseLM(nn.Module):
         of valid tokens, and returns its share (``_mesh_loss_args``)."""
         p = self._top(self.params if params is None else params)
         batch, n_tokens = self._mesh_loss_args(batch)
-        loss, cnt = cross_entropy(self._head(p), self._hidden(p, batch),
-                                  batch["labels"].to(self.device), self.cfg,
+        loss, cnt = cross_entropy(self._head(p),
+                                  self._loss_hidden(self._hidden(p, batch)),
+                                  self._labels(batch), self.cfg,
                                   vocab_chunk, n_tokens)
         return loss, {"loss": loss, "tokens": cnt}
 
     def _mesh_loss_args(self, batch):
         """``(this rank's rows of batch, the global count of valid
         labels)``; off a mesh ``(batch, None)``."""
-        if self._batch_group() is None:
+        if self._loss_group() is None:
             return batch, None
         n_tokens = (batch["labels"] >= 0).sum(dtype=torch.int32).to(
             self.device)
@@ -561,12 +691,20 @@ class DenseLM(nn.Module):
             raise ValueError(f"prefill: cache_len {cache_len} < prompt "
                              f"length {s}")
         cache = self._mesh_cache(self.init_cache(b, cache_len))
+        x, qpos, seq = self._seq_entry(x, qpos)
+        local = self._ring_local()
         for i, (p_l, w) in enumerate(zip(self._slices(p), self.windows)):
-            x, state, _ = self._block_train(self._slice(p_l), w, x, qpos)
+            h = x if seq is None else seq.gather(x)
+            h, state, _ = self._block_train(self._slice(p_l), w, h, qpos)
+            x = h if seq is None else seq.keep(h)
+            if local:                    # the ring's k/v: this chunk's
+                state = tuple(self._seq_split().gather(t) for t in state)
             layer = self._cache_layer(cache, i)
             self._fill_cache({k: v[None] for k, v in layer.items()}, 0,
                              state, s)
             self._cache_store(cache, i, layer)
+        if self._seq_split() is not None:
+            x = self._seq_split().gather(x)
         return self._all_rows(L.unembed(p, x[:, -1:, :], self.cfg)), cache
 
     @torch.no_grad()

@@ -30,9 +30,14 @@ class VLM(DenseLM):
         qpos = torch.arange(x.shape[1], dtype=torch.int32, device=self.device)
         return x, qpos
 
-    def _hidden(self, params, batch):
+    def _logit_positions(self, h):
         """The text positions only."""
-        return super()._hidden(params, batch)[:, self.cfg.prefix_len:]
+        return h[:, self.cfg.prefix_len:]
+
+    def _pad_labels(self, labels):
+        """No label over the image prefix."""
+        return torch.nn.functional.pad(labels, (self.cfg.prefix_len, 0),
+                                       value=-1)
 
     def input_specs(self, shape: ShapeSpec, multi_pod: bool = True) -> dict:
         """Text and prefix together fill the shape's ``seq_len``; the

@@ -188,25 +188,33 @@ class XLSTMLM(DenseLM):
         x = L.embed_tokens(params, batch["tokens"].to(self.device), self.cfg,
                            self.dtype)
         state = self._zero_pair_state(x.shape[0])
+        x, _, seq = self._seq_entry(x, None)
 
         def pair(p_l, st, x):
             return self._pair(self._slice(p_l), x, *st)[0]
         return remat_loop(
             [(pair, (p_l, tuple(state[k][i] for k in STATE_KEYS)))
              for i, p_l in enumerate(self._slices(params))], x,
-            self.cfg.remat and torch.is_grad_enabled())
+            self.cfg.remat and torch.is_grad_enabled(), seq)
 
     def _run_cached(self, params, x, cache):
         """The pairs over ``x`` from the states in ``cache``, which each
-        pair overwrites with its new state."""
+        pair overwrites with its new state.  Under ``act_spec`` (a prompt,
+        never one token) ``x`` is kept as this rank's chunk between pairs
+        and returned whole."""
+        seq = self._seq_split() if x.shape[1] > 1 else None
+        if seq is not None:
+            x = seq.keep(x)
         for i, p_l in enumerate(self._slices(params)):
             layer = self._cache_layer(cache, i)
-            x, st = self._pair(self._slice(p_l), x,
+            h = x if seq is None else seq.gather(x)
+            h, st = self._pair(self._slice(p_l), h,
                                *(layer[k] for k in STATE_KEYS))
+            x = h if seq is None else seq.keep(h)
             for k, t in zip(STATE_KEYS, st):
                 layer[k].copy_(t)
             self._cache_store(cache, i, layer)
-        return x
+        return x if seq is None else seq.gather(x)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch_size: int, cache_len: int) -> dict:

@@ -96,6 +96,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
       block.
     * Clipping, compression and AdamW run on the blocks, with the
       global tree's norm, int8 scales and top-k thresholds.
+    * Under the model's ``act_spec`` each rank's loss covers its chunk
+      of the sequence, and gradients and metrics are also summed over
+      the axes that split it (``DenseLM._grad_axes``).
     """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, not {microbatches}")
@@ -106,7 +109,6 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
                              else grad_spec)
         SH.tree_specs(model.grad_layout, model.layout)   # names must match
     shardings = None if mesh is None else (model.layout, mesh)
-    group = None if mesh is None else model._batch_group()
 
     def add_grads(params, batch, bufs):
         """Run the loss and add its gradients into ``bufs`` (a tree like
@@ -166,6 +168,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int = 1,
     def train_step(state: TrainState, batch):
         loss, metrics, grads = accumulate(state.params, batch)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        group = None if mesh is None else model._loss_group()
         if group is not None:
             # the ranks' shares of the loss and metrics sum to the batch's
             metrics = {k: group.sum(v) for k, v in metrics.items()}

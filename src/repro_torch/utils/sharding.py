@@ -28,6 +28,10 @@ a spec:
 * ``gather_for_compute``: ``gather`` under autograd, with ``reduce_to``
   as its backward (the ZeRO-3 pattern: a layer's weights gathered for
   its compute, their gradients reduced back to the shard).
+* ``gather_seq``: ``gather`` along one dimension under autograd, its
+  backward chosen by what the ranks computed from the whole: a slice
+  where every rank along the axes computed the same rows, a
+  reduce-scatter where each computed only its own chunk's share.
 * ``BatchGroup``: the ranks that split a batch's rows (``rows``,
   ``gather_rows``, sums and gathers in row order).
 
@@ -37,6 +41,8 @@ list forms ``all_gather``, ``reduce_scatter``, ``all_reduce`` and
 is handed host copies (``wire``: gloo took some collectives on CUDA
 tensors and aborted the process on others).  An axis of size 1 issues
 no collective, so a 1 x 1 mesh runs every path without moving a byte.
+Each collective is reported to ``utils.roofline.count_collective`` (the
+dry run's counters; nothing is recorded without one).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.utils.roofline import count_collective
 from repro_torch.utils.tree import flatten_with_paths, tree_map
 
 
@@ -185,6 +192,7 @@ def _all_gather0(x: torch.Tensor, group, n: int) -> torch.Tensor:
     out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                       device=xs.device)
     dist.all_gather(list(out.unbind(0)), xs, group=group)
+    count_collective("all-gather", out.nbytes, group)
     return out.to(x.device)
 
 
@@ -195,6 +203,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     xs = xs.clone() if xs is x else xs
     dist.all_reduce(xs, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
+    count_collective("all-reduce", xs.nbytes, group)
     return xs.to(x.device)
 
 
@@ -205,6 +214,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int,
     parts = [wire(p.contiguous(), group) for p in x.chunk(n, dim=dim)]
     out = torch.empty_like(parts[idx])
     dist.reduce_scatter(out, parts, group=group)
+    count_collective("reduce-scatter", out.nbytes, group)
     return out.to(x.device)
 
 
@@ -282,6 +292,70 @@ def reshard(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
         return x
     full = gather(x, src, mesh)
     return shard_of(full, dst, mesh)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, axes, mesh, grad):
+        ctx.args = (spec, axes, mesh, grad)
+        out = gather(x, spec, mesh)
+        return out.clone() if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, axes, mesh, grad = ctx.args
+        if grad == "slice":
+            g = shard_of(g, spec, mesh).contiguous()
+        else:
+            g = reduce_to(g, spec, mesh, axes)
+        return g, None, None, None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int, axes, mesh,
+               grad: str = "sum") -> torch.Tensor:
+    """The whole of ``x`` along ``dim``, split over the mesh ``axes``
+    (major first): ``gather`` of the spec that names ``axes`` at
+    ``dim``.  Under autograd the gradient of the whole comes back by
+    ``grad``: ``"slice"`` (every rank along ``axes`` computed the same
+    rows from it, so each keeps its block of its own, equal, gradient)
+    or ``"sum"`` (each computed only its own chunk's share: the shares
+    are summed, a reduce-scatter to the block)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"gather_seq: grad {grad!r}: 'slice' or 'sum'")
+    spec = P(*([None] * dim), tuple(axes))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SeqGather.apply(x, spec, tuple(axes), mesh, grad)
+    return gather(x, spec, mesh)
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.args = (spec, mesh)
+        return shard_of(x, spec, mesh).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.args
+        return gather(g.contiguous(), spec, mesh), None, None
+
+
+def scatter_seq(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """This rank's block along ``dim`` (split over ``axes``) of an ``x``
+    that every rank along ``axes`` holds whole and alike.  Under autograd
+    the gradient comes back whole (an all-gather of the blocks'
+    gradients), as a replicated input's does: the transpose of
+    ``gather_seq(.., "slice")``."""
+    spec = P(*([None] * dim), tuple(axes))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SeqScatter.apply(x, spec, mesh)
+    return shard_of(x, spec, mesh)
+
+
+def seq_chunk(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` split over ``axes`` (a
+    view; its gradient is zero outside the block)."""
+    return shard_of(x, P(*([None] * dim), tuple(axes)), mesh)
 
 
 def tree_specs(spec_tree, tree) -> list:

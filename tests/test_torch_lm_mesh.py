@@ -43,6 +43,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_lm_mesh_cases as C  # noqa: E402
+from torch_lm_mesh_cases import (  # noqa: E402
+    _compare_step, _flip_steps, _split)
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.registry import build_model, params_from_numpy  # noqa: E402
 from repro_torch.train.compression import CompressionConfig  # noqa: E402
@@ -54,7 +56,6 @@ from repro_torch.utils import sharding as SH  # noqa: E402
 from repro_torch.utils.tree import flatten_with_paths  # noqa: E402
 
 WORLD_DEADLINE_S = 300.0
-PARAMS, OPT, ERR = "[<flat index 0>]/", "[<flat index 1>]/", "[<flat index 2>]/"
 
 
 @pytest.fixture(scope="module")
@@ -130,58 +131,6 @@ def test_ring_attention_matches_reference(worlds, case):
 
 
 # ------------------------------------------------------------ the train step
-
-def _split(flat: dict, prefix: str) -> dict:
-    return {k[len(prefix):]: v for k, v in flat.items()
-            if k.startswith(prefix)}
-
-
-def _compare_step(want, got, wmet, gmet, lr, rtol, flip_steps=None,
-                  p_tol=1e-3):
-    """``tests/test_torch_train.py::_compare_step`` on flat dicts of
-    numpy leaves (``rtol`` 1e-5 there; ``m`` and ``v`` at 10 and 20
-    times it): returns the flip masks."""
-    for k in wmet:
-        if k != "tokens":
-            np.testing.assert_allclose(gmet[k], wmet[k], rtol=rtol,
-                                       err_msg=k)
-    assert int(got[OPT + "step"]) == int(want[OPT + "step"])
-    flips = {}
-    for key, r in (("m", 10 * rtol), ("v", 20 * rtol)):
-        w, g = _split(want, OPT + key + "/"), _split(got, OPT + key + "/")
-        assert sorted(w) == sorted(g)
-        for name in w:
-            a, b = w[name].astype(np.float64), g[name].astype(np.float64)
-            bad = np.abs(b - a) > r * np.abs(a) + rtol * np.abs(a).max()
-            if key == "m" and flip_steps is not None:
-                flips[name] = bad.copy()
-                assert bad.mean() <= 1e-3, (name, bad.mean())
-                assert (np.abs(b - a)[bad]
-                        <= 0.1 * flip_steps[name] * 1.01).all(), name
-            bad &= ~flips.get(name, np.zeros_like(bad))
-            assert not bad.any(), f"{key}/{name}: {np.abs(b - a).max()}"
-    w, g = _split(want, PARAMS), _split(got, PARAMS)
-    assert sorted(w) == sorted(g)
-    m = _split(want, OPT + "m/")
-    for name in w:
-        a, b = w[name].astype(np.float64), g[name].astype(np.float64)
-        grad = np.abs(m[name]) / 0.1             # |g| * scale at step 1
-        loose = grad <= max(1e3 * 1e-8, 1e-4 * grad.max())
-        loose |= flips.get(name, np.zeros_like(loose))
-        diff = np.abs(b - a)
-        assert (diff[~loose] <= lr * p_tol + 1e-7 * np.abs(a)[~loose]).all(), \
-            (name, diff[~loose].max())
-        assert (diff[loose] <= 2 * lr * 1.01).all(), name
-    return flips
-
-
-def _flip_steps(want):
-    """The compressor's step a leaf (``test_compressed_step_matches_
-    reference``'s bound): twice the largest error it left."""
-    errs = _split(want, ERR)
-    return {n: 2 * np.abs(e).max() + 1e-30 for n, e in errs.items()} \
-        if errs else None
-
 
 def _meshless(name):
     """The port's step without a mesh on the same weights and batch."""
@@ -302,11 +251,62 @@ def test_checkpoint_restores_across_mesh_shapes(worlds):
         assert meta["ckpt/restored_meshless_equal"]
 
 
-def test_act_spec_and_the_ring_under_autograd_raise(worlds):
-    ranks, _ = worlds
-    for _, meta in ranks:
-        assert "ROADMAP" in meta["refuse/act_spec"]
-        assert "forward only" in meta["refuse/ring_grad"]
+class _AnyMesh:
+    """A mesh object the refusals below are raised before touching."""
+    mesh_dim_names = ("data", "model")
+
+
+def _ring_with_a_window():
+    cfg = C.tconfig(C.RING_ARCH, attn_impl="ring", window=8)
+    model = build_model(cfg, device="cpu", params=params_from_numpy(
+        cfg, C.weights(cfg, 2), "cpu"))
+    model.ring_mesh = _AnyMesh()
+    model.forward({"tokens": torch.zeros((2, C.S), dtype=torch.int32)})
+
+
+def _ring_axis_splitting_the_batch():
+    q, k, v = (torch.from_numpy(a) for a in C.ring_inputs())
+    TL.attn_ring(q, k, v, mesh=_AnyMesh(), axis="model",
+                 batch_axes=("data", "model"))
+
+
+def _threads_on_a_mesh_service():
+    from repro_torch.core.graph import build_coo
+    from repro_torch.core.service import GraphAnalyticsService
+    g = build_coo(np.array([0, 1]), np.array([1, 2]), 3, device="cpu")
+    GraphAnalyticsService(workers=2).add_graph("g", g, mesh=_AnyMesh(),
+                                               device="cpu")
+
+
+def _a_dry_run_cell_that_reads_the_host():
+    from repro_torch.launch import dryrun as D
+    D.measure(D.Program(
+        lambda: torch.zeros(4, device="meta").sum().item(), {}))
+
+
+REFUSALS = {
+    "ring_window": (_ring_with_a_window, ValueError, "window 0"),
+    "ring_axis_in_batch": (_ring_axis_splitting_the_batch, ValueError,
+                           "also splits the batch"),
+    "mesh_service_threads": (_threads_on_a_mesh_service, ValueError,
+                             "rank to rank"),
+    "dryrun_host_read": (_a_dry_run_cell_that_reads_the_host, Exception,
+                         "meta"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_act_spec_and_the_ring_under_autograd_raise(case):
+    """What still refuses, now that ``act_spec`` and the ring's backward
+    are ported: the ring with a window (the reference asserts window 0),
+    the ring's axis also splitting the batch, worker threads on a mesh
+    service, and a dry-run cell whose path reads the host."""
+    fn, err, words = REFUSALS[case]
+    with pytest.raises(err, match=words) as info:
+        fn()
+    if case == "dryrun_host_read":
+        from repro_torch.launch.dryrun import HostRead
+        assert isinstance(info.value, HostRead)
 
 
 def test_a_rank_that_skips_a_collective_fails_within_the_timeout(worlds):

@@ -13,8 +13,8 @@ The port's models are built on the meta device, so the full-size ones
 
 Also ``shard_index``'s refusals where JAX refuses (its block map itself
 is held against JAX's ``devices_indices_map`` on virtual meshes in
-``tests/test_torch_lm_mesh.py``) and the ring's and ``act_spec``'s
-refusals off a mesh.
+``tests/test_torch_lm_mesh.py``), the ring's refusal off a mesh and its
+gradients on a one-rank mesh.
 """
 import dataclasses
 
@@ -140,13 +140,37 @@ def test_shard_index_accepts_trailing_none_entries():
                                                          slice(0, 6))
 
 
+class _OneRankMesh:
+    """What ``attn_ring`` reads of a 1 x 1 ``DeviceMesh`` (an axis of size
+    1 issues no collective)."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 1)
+
+    def get_coordinate(self):
+        return [0, 0]
+
+
 def test_ring_needs_a_mesh_and_is_forward_only():
+    """``impl="ring"`` raises without a mesh, as the reference's does.
+    The ring is no longer forward only: on a one-rank mesh its output
+    and its gradients of q, k and v are ``attn_ref``'s."""
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="ring"):
         TL.attention_output(q, q, q, torch.arange(4), torch.arange(4),
                             "ring")
-    with pytest.raises(RuntimeError, match="forward only"):
-        TL.attn_ring(q.requires_grad_(), q, q, mesh=None)
+    gen = torch.Generator().manual_seed(0)
+    ins = [torch.randn(2, 16, 4, 8, generator=gen) for _ in range(3)]
+    ins[1], ins[2] = ins[1][:, :, :2], ins[2][:, :, :2]
+    pos = torch.arange(16)
+    outs = []
+    for ring in (True, False):
+        ts = [t.clone().requires_grad_() for t in ins]
+        o = TL.attn_ring(*ts, mesh=_OneRankMesh(), chunk_k=4) if ring \
+            else TL.attn_ref(*ts, pos, pos, causal=True)
+        (o * o).sum().backward()
+        outs.append([o.detach()] + [t.grad for t in ts])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 def test_hooks_default_as_the_reference():

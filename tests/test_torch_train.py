@@ -466,8 +466,8 @@ def test_mesh_specs_raise():
     """The mesh arguments are ported: ``state_spec`` is the reference's
     tree; ``dp_spec`` / ``grad_spec`` on a model off a mesh change nothing
     (as the reference's without one), and on a 1 x 1 mesh the step is the
-    meshless one bit for bit.  What still raises: ``act_spec`` (sequence
-    parallelism, not ported) on a mesh, naming ROADMAP."""
+    meshless one bit for bit, ``act_spec`` included (its sequence axis
+    has one rank, so nothing splits)."""
     jmodel, tmodel = _pair()
     got = T.flatten_with_paths(state_spec(tmodel))
     want = jflat(jstate_spec(jmodel))
@@ -487,9 +487,10 @@ def test_mesh_specs_raise():
                       T.flatten_with_paths(state)],
                      {k: float(v) for k, v in met.items()}))
     assert runs[0] == runs[1] == runs[2]
+    plain = model.forward(batch)
     model.act_spec = SP("data", "model", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(batch)
+    assert model._seq_split() is None
+    assert torch.equal(model.forward(batch), plain)
 
 
 # ------------------------------------------ tests/test_train.py, ported
