@@ -19,15 +19,17 @@ versions on the card and float32 models; then the distributed engine on
 a device mesh (a 1 x 1 NCCL mesh in this process, a 2 x 2 gloo mesh of
 four processes on the one card), and the LM on a device mesh (a 1 x 1
 NCCL mesh in this process, a 2 x 2 gloo mesh of four processes), and
-last the dry run's predicted peaks against what phases 6 and 8 measured.
+the dry run's predicted peaks against what phases 6 and 8 measured, and
+last the service tier (the incremental catalog, the hybrid-cloud pools,
+the runtime and obs, and the calibration fitter) on a 2^22 snapshot.
 Phases, in the order they run: 0, 1, 2 (its small checks), 6, 8, 9, 2
 (its main-path shapes), 3, 4, 5, 7 (service fusion), 10, 7 (the rest),
-11, 12; any failure exits non-zero and prints no result line.  Host work
-runs beside the card's phases: a helper process (``--host-work``)
+11, 12, 13; any failure exits non-zero and prints no result line.  Host
+work runs beside the card's phases: a helper process (``--host-work``)
 computes the dry run's predictions and HITS's float64 oracle, another
-(``--host-graph``) the 2^24 graph's host build (read after phase 9), and
-a thread phase 5's OrientedELL of permuted ids and phase 7's LPA and HITS
-graphs (beside phases 3-10).
+(``--host-graph``) the 2^24 graph's host build (read after phase 9) and
+then phase 13's 2^22 one, and a thread phase 5's OrientedELL of permuted
+ids and phase 7's LPA and HITS graphs (beside phases 3-10).
 
   0. card     nvidia-smi's name and power limit, torch's device name
   1. build    nvcc builds every kernel library, all at once (seconds and
@@ -248,6 +250,45 @@ graphs (beside phases 3-10).
               and phase 6's first prefill: the predicted peak within 15 %
               of the measured one, and a planted fault (the optimizer
               state, the parameters left out of the count) outside it
+ 13. service  (last) the service tier on ``user_follow_graph(2**22, 4.0,
+              seed=5)``, symmetrized (about 3.4e7 directed edges; host
+              build in the graph helper): (a) the incremental catalog:
+              CC, BFS and SSSP from the top-degree vertex, k-core (k = 4)
+              and PageRank cold on version 0, then an add-only delta of
+              0.1 % and one of 1 % of the edge set (drawn as
+              ``fig_incremental``'s ``_delta_edges``, seed 23) and a 0.1 %
+              removal: CC, BFS, SSSP repaired ("incremental"), PageRank
+              warm-started (fewer supersteps than cold on the 0.1 %
+              delta), k-core cold on the additions and repaired on the
+              removal, each against a cold engine run on the same
+              version in the variant the service reports it ran
+              (byte-equal; PageRank L1 < 1e-4); three seeded calls
+              traced (cProfile and torch.profiler); ``as_of=0``
+              returns version 0's bytes and ``metrics()["incremental"]``
+              counts 7 repairs and 2 warm starts; planted faults: a label
+              changed, a repair seeded from the wrong parent.  (b)
+              ``default_pools()`` (both pools alias the card), the
+              snapshot resident on onprem: the first ticket placed on
+              cloud moves the snapshot's bytes once (``TransferLedger``)
+              and makes cloud resident; a batch queue past its capacity
+              spills to onprem; cloud marked unhealthy bumps the
+              generation, re-costs the cached plan and fails later
+              tickets over to onprem; every ticket's bytes equal the
+              engine's alone; after a delta the failover answers the new
+              version; planted faults: the ledger entry dropped, the old
+              pool's cached bytes.  (c) a planted transient failure (the
+              first call raises) retried to the same bytes,
+              ``Backpressure`` at the batch tier's depth, every numeric
+              leaf of ``metrics()`` parsed back from ``metrics_text()``
+              under its documented name (but the bucket names that
+              collide, ROADMAP.md §3), and the ``PlanAccuracyMeter``'s
+              calibration samples (as many as ``metrics()`` counts)
+              through ``fit_profile``.  (d) ``launch/calibrate.py``'s
+              ``main`` in this process at ``--scales 2**18 --repeats 1``
+              into ``build/`` (deleted after): loaded (the generation
+              bumps), round-tripped through JSON, printed beside the
+              checked-in profile; its triangle runs must launch
+              ell_intersect.  Launches counted per sub-phase
 
 Kernel checks at the main-path shapes (ell_intersect over the V = 2^24
 ``OrientedELL``, and over one built from the same edges under the
@@ -263,10 +304,13 @@ path, and each kernel's numbers at its main-path shape); the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2342,15 +2386,22 @@ _CHILDREN = []             # helper processes, stopped when main ends
 
 def host_graph_main(outdir: str) -> int:
     """``chip_smoke.py --host-graph DIR``: the main-path graph's host
-    build (phases 2-5, 7, 10), to DIR (``g4.pt``, then ``g4.json``)."""
+    build (phases 2-5, 7, 10), to DIR (``g4.pt``, then ``g4.json``), then
+    phase 13's (``g13.pt``, ``g13.json``)."""
     import torch
     out = Path(outdir)
-    t0 = time.perf_counter()
-    coo = identifier_graph(MAIN_LOG2V, seed=3, device="cpu")
-    with _whole(out / "g4.pt") as f:
-        torch.save(coo, f)
-    with _whole(out / "g4.json") as f:
-        f.write(json.dumps({"seconds": time.perf_counter() - t0}).encode())
+    for name, build in (
+            ("g4", lambda: identifier_graph(MAIN_LOG2V, seed=3,
+                                            device="cpu")),
+            ("g13", lambda: service_graph(SERVICE_LOG2V, device="cpu"))):
+        t0 = time.perf_counter()
+        coo = build()
+        with _whole(out / f"{name}.pt") as f:
+            torch.save(coo, f)
+        del coo
+        with _whole(out / f"{name}.json") as f:
+            f.write(json.dumps(
+                {"seconds": time.perf_counter() - t0}).encode())
     return 0
 
 
@@ -4196,6 +4247,527 @@ def dryrun_phase(helper, train_row, serve_rows) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 13
+#
+# The service tier on the card, on a daily snapshot's slice: the
+# user-follow graph at 2^SERVICE_LOG2V (mean degree 4, seed 5),
+# symmetrized, self-loops dropped, built by the --host-graph helper.
+# (a) the incremental catalog: cold answers on version 0, then two
+# add-only deltas (SERVICE_DELTAS of the edge set, drawn as
+# ``benchmarks/fig_incremental.py``'s ``_delta_edges`` draws them) and a
+# removal delta; (b) the hybrid-cloud pools of ``default_pools()`` (both
+# alias the one card); (c) the runtime (a planted transient failure,
+# backpressure) and obs (the metrics exposition, the plan-accuracy
+# meter's calibration samples); (d) the calibration fitter at
+# CALIBRATE_SCALES.  Every comparison has a planted fault it must
+# reject.
+
+SERVICE_LOG2V = 22
+SERVICE_DELTAS = (0.001, 0.01)   # add-only deltas, shares of the edge set
+SERVICE_REMOVAL = 0.001          # the removal delta, a share of the edges
+SERVICE_DELTA_SEED = 23
+SERVICE_CAPACITY = 2             # (b) each pool's batch-tier capacity
+SERVICE_QUERIES = ("cc", "bfs", "sssp", "k_core", "pagerank")
+CALIBRATE_SCALES = "2**18"       # (d) the fitter's sweep on the card
+# (d)'s path: the sweep's triangle runs launch ell_intersect
+CALIBRATE_PATH = "service tier (d) calibration V=2^18"
+
+
+def service_graph(log2v: int = SERVICE_LOG2V, device="cpu"):
+    """Phase 13's snapshot (host build in the --host-graph helper)."""
+    from repro_torch.core import graph as G
+    from repro_torch.data import synthetic as S
+    V = 2 ** log2v
+    src, dst = S.user_follow_graph(V, 4.0, seed=5)
+    keep = src != dst
+    return G.build_coo(src[keep], dst[keep], V, symmetrize=True,
+                       device=device)
+
+
+def _service_queries(coo) -> dict:
+    """The five queries of (a); BFS and SSSP from the highest-degree
+    vertex."""
+    import torch
+    from repro_torch.core.query import GraphQuery as Q
+    V = coo.n_vertices
+    hub = int(torch.bincount(coo.dst[: coo.n_edges].long(),
+                             minlength=V).argmax())
+    return {"cc": Q.of("connected_components"),
+            "bfs": Q.of("bfs", sources=(hub,)),
+            "sssp": Q.of("sssp", source=hub),
+            "k_core": Q.of("k_core", k=KCORE_K),
+            "pagerank": Q.of("pagerank", tol=PAGERANK_HALT_L1 / V)}
+
+
+def trace_call(fn):
+    """``fn()`` under cProfile and ``torch.profiler`` (host and device):
+    its wall (host clock, to a synchronise), the CUDA kernels' summed
+    device time and the share of the wall they leave idle, the host
+    functions with the most own time, and the host ops with the most
+    own time.  Returns ``(fn's result, that dict)``."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pr.enable()
+        out = fn()
+        torch.cuda.synchronize()
+        pr.disable()
+        wall = time.perf_counter() - t0
+    funcs = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][2])
+    host = [{"function": f"{Path(f).name}:{line}({name})",
+             "own_ms": tt * 1e3, "calls": nc}
+            for (f, line, name), (_, nc, tt, _, _) in funcs[:8]]
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA)
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    row = {"traced_wall_ms": wall * 1e3, "host_functions": host,
+           "host_ops": [{"op": e.key[:60],
+                         "own_ms": e.self_cpu_time_total / 1e3,
+                         "calls": e.count} for e in ops]}
+    if busy_us:
+        row.update(device_busy_ms=busy_us / 1e3,
+                   device_idle_share=1 - busy_us / 1e6 / wall)
+    else:
+        row["device_busy_ms"] = "not measured"
+    return out, row
+
+
+def _timed_call(svc, name, q, **kw):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = svc.call(name, q, **kw)
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def _l1(a, b) -> float:
+    return float((a.double() - b.double()).abs().sum())
+
+
+def _agrees(tag, r, cold) -> bool:
+    """A seeded answer against the cold one: byte for byte, PageRank
+    within PAGERANK_L1_TOL (L1)."""
+    if tag == "pagerank":
+        return _l1(r.value, cold.value) < PAGERANK_L1_TOL
+    return bits_equal(r.value, cold.value)
+
+
+def _fresh_pairs(coo, share, rng):
+    """``share`` of the edge set as new (src, dst) pairs, drawn as
+    ``fig_incremental._delta_edges`` draws them."""
+    import numpy as np
+    V, n = coo.n_vertices, max(int(coo.n_edges * share), 1)
+    return np.stack([rng.integers(0, V, n), rng.integers(0, V, n)], axis=1)
+
+
+def _present_pairs(coo, share, rng):
+    """``share`` of the edge set's undirected pairs, to remove."""
+    import numpy as np
+    src, dst = _host_edges(coo)
+    sel = np.flatnonzero(src < dst)
+    pick = rng.choice(sel, max(int(sel.size * share), 1), replace=False)
+    return np.stack([src[pick], dst[pick]], axis=1)
+
+
+# (a)'s seeded calls traced on the host and the device: each version's
+# first query (it meets the version's derived state unbuilt) and a warm
+# PageRank
+SERVICE_TRACED = {(1, "cc"), (1, "pagerank"), (3, "k_core")}
+
+
+def incremental_catalog(coo) -> dict:
+    """(a): versions 0 (cold), 1 and 2 (add-only deltas), 3 (removal)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.service import GraphAnalyticsService
+    rng = np.random.default_rng(SERVICE_DELTA_SEED)
+    qs = _service_queries(coo)
+    svc = GraphAnalyticsService()
+    t0 = time.perf_counter()
+    svc.add_snapshot("g", coo, as_of=0)
+    rows, cold0 = {"add_snapshot_ms": [(time.perf_counter() - t0) * 1e3]}, {}
+    for tag in SERVICE_QUERIES:
+        r, ms = _timed_call(svc, "g", qs[tag])
+        cold0[tag] = r
+        rows[f"v0 {tag}"] = {"wall_ms": ms, "iterations": r.iterations,
+                             "mode": r.meta.get("mode")}
+    results = {0: cold0}
+    edits = [("added", share, _fresh_pairs(coo, share, rng))
+             for share in SERVICE_DELTAS]
+    version = 0
+    for kind, share, pairs in edits + [("removed", SERVICE_REMOVAL, None)]:
+        version += 1
+        if kind == "removed":
+            pairs = _present_pairs(svc.context("g").coo, SERVICE_REMOVAL, rng)
+        t0 = time.perf_counter()
+        svc.add_snapshot("g", as_of=version, **{kind: pairs})
+        rows["add_snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+        ctx = svc.context("g")
+        results[version] = {}
+        tags = SERVICE_QUERIES if kind == "added" else ("k_core",)
+        for tag in tags:
+            # a cold run under the cold plan first builds the version's
+            # derived state, so the seeded call and the timed cold run
+            # after it both find it
+            q = qs[tag]
+            pre = ctx.plan(q)
+            ctx.engine(pre.engine).run(q.algorithm, q.params,
+                                       variant=pre.variant)
+            trace = None
+            if (version, tag) in SERVICE_TRACED:
+                (r, ms), trace = trace_call(
+                    lambda: _timed_call(svc, "g", q))
+            else:
+                r, ms = _timed_call(svc, "g", q)
+            # the cold answer in the variant the service reports it ran
+            plan, realized = r.meta["plan"], r.meta.get("realized_variant")
+            eng = ctx.engine(plan.engine)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold = eng.run(q.algorithm, q.params,
+                           variant=realized or plan.variant)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            if cold.meta.get("realized_variant") != realized:
+                fail(f"service v{version} {tag}: the service reports "
+                     f"{realized!r}, the engine asked for it ran "
+                     f"{cold.meta.get('realized_variant')!r}")
+            mode = r.meta.get("mode")
+            want = {"cc": "incremental", "bfs": "incremental",
+                    "sssp": "incremental", "pagerank": "warm",
+                    "k_core": "incremental" if kind == "removed" else None}
+            if mode != want[tag]:
+                fail(f"service v{version} {tag}: mode {mode!r}, expected "
+                     f"{want[tag]!r}")
+            if not _agrees(tag, r, cold):
+                fail(f"service v{version} {tag}: the {mode} answer differs "
+                     "from a cold run on the same snapshot")
+            # the warm start saves supersteps on the 0.1 % delta; on the
+            # 1 % one, under phase 4's halt, it takes more than a cold
+            # run, in both packages (ROADMAP.md §3)
+            if tag == "pagerank" and share <= SERVICE_DELTAS[0] and \
+                    not r.iterations < cold.iterations:
+                fail(f"service v{version} pagerank: warm {r.iterations} "
+                     f"iterations, cold {cold.iterations}")
+            results[version][tag] = r
+            rows[f"v{version} {tag}"] = {
+                "delta": f"{kind} {len(pairs)}", "mode": mode,
+                "wall_ms": ms, "iterations": r.iterations,
+                "cold_wall_ms": cold_ms, "cold_iterations": cold.iterations,
+                "plan": [plan.engine, plan.variant, plan.pool, plan.mode],
+                "realized_variant": realized}
+            log(f"service (a) v{version} {tag} "
+                + json.dumps(rows[f"v{version} {tag}"]))
+            if trace is not None:
+                rows[f"v{version} {tag} trace"] = trace
+                log(f"service (a) v{version} {tag} trace "
+                    + json.dumps(trace))
+    # as_of=0 is the parent's answer, byte for byte
+    for tag in SERVICE_QUERIES:
+        again = svc.call("g", qs[tag], as_of=0)
+        if not bits_equal(again.value, cold0[tag].value):
+            fail(f"service as_of=0 {tag}: not the parent's bytes")
+    meter = svc.metrics()["incremental"]
+    n_inc = 3 * len(SERVICE_DELTAS) + 1
+    if meter["incremental_runs"] != n_inc or \
+            meter["warm_hits"] != len(SERVICE_DELTAS):
+        fail(f"service metrics: {meter}, expected {n_inc} incremental runs "
+             f"and {len(SERVICE_DELTAS)} warm hits")
+    # planted faults the same check must reject: version 1's labels with
+    # one changed, and version 1 repaired from the wrong parent's seed
+    # (version 2's labels)
+    good = results[1]["cc"]
+    bad = dataclasses.replace(good, value=good.value.clone())
+    bad.value[0] += 1
+    if _agrees("cc", bad, good):
+        fail("service: the check cannot see one label changed")
+    ctx1 = svc.context("g", as_of=1)
+    wrong = ctx1.engine("local").run("connected_components", {},
+                                     seed=results[2]["cc"],
+                                     delta=ctx1.coo.delta)
+    if wrong.meta.get("mode") != "incremental" or \
+            _agrees("cc", wrong, good):
+        fail("service: a repair seeded from the wrong parent went unseen")
+    rows["metrics"] = meter
+    rows["planted"] = ["one label changed", "seed from the wrong parent"]
+    rows["snapshot"] = {"vertices": coo.n_vertices, "edges": coo.n_edges,
+                        "versions": svc.snapshot_versions("g")}
+    return rows, svc
+
+
+def _pool_ledger(svc) -> dict:
+    """Each pool's transfer ledger as ``metrics()`` reports it."""
+    return {name: {k: row[k] for k in ("transfer_bytes", "transfers")}
+            for name, row in svc.metrics()["pools"].items()}
+
+
+def _ledger_holds(ledger: dict, coo) -> bool:
+    """The snapshot's bytes moved to cloud exactly once, and none to
+    onprem, where it was resident from the start."""
+    return ledger.get("cloud") == {"transfer_bytes": coo.nbytes(),
+                                   "transfers": 1} and \
+        ledger.get("onprem") == {"transfer_bytes": 0, "transfers": 0}
+
+
+def hybrid_pools(coo, child) -> dict:
+    """(b): ``default_pools()``, the snapshot resident on onprem only."""
+    from repro_torch.core import pools as PL
+    from repro_torch.core.query import GraphQuery as Q
+    from repro_torch.core.service import GraphAnalyticsService
+    ps = PL.default_pools(link_bandwidth=1e15, cloud_compute_scale=0.01,
+                          capacity=SERVICE_CAPACITY)
+    if ps.get("onprem").devices != ps.get("cloud").devices:
+        fail(f"pools: one card, yet {ps.get('onprem').devices} and "
+             f"{ps.get('cloud').devices}")
+    svc = GraphAnalyticsService(pools=ps, interactive_threshold_s=0.0)
+    svc.add_snapshot("g", coo, as_of=0, pools=["onprem"])
+    ctx = svc.context("g")
+    base = ctx.engine("local")
+    V, rows, tickets = coo.n_vertices, {}, []
+
+    def bfs(i):
+        return Q.bfs([(i * 7919) % V])
+
+    # 1. the cheap cloud pool: one transfer, recorded once, then resident
+    t = svc.submit("g", bfs(0))
+    if t.pool != "cloud" or t.plan.transfer_s <= 0:
+        fail(f"pools: the first ticket went to {t.pool} "
+             f"(transfer_s {t.plan.transfer_s})")
+    svc.drain()
+    tickets.append(t)
+    ledger = _pool_ledger(svc)
+    if not _ledger_holds(ledger, coo) or "cloud" not in ctx.residency:
+        fail(f"pools: ledger {ledger}, expected one transfer of "
+             f"{coo.nbytes()} bytes to cloud; residency "
+             f"{sorted(ctx.residency)}")
+    if _ledger_holds({k: v for k, v in ledger.items() if k != "cloud"},
+                     coo):
+        fail("pools: the ledger check cannot see a dropped entry")
+    # 2. cloud's batch queue filled to capacity spills to onprem
+    burst = [svc.submit("g", bfs(i)) for i in range(1, SERVICE_CAPACITY + 3)]
+    pools = [x.pool for x in burst]
+    if pools != ["cloud"] * SERVICE_CAPACITY + ["onprem"] * 2 or \
+            svc.stats["spilled"] != 2:
+        fail(f"pools: spill placed {pools}, spilled {svc.stats['spilled']}")
+    svc.drain()
+    tickets += burst
+    # 3. cloud unhealthy: generation bump, plans re-costed, failover
+    q = bfs(99)
+    cached = ctx.plan(q)
+    gen = ps.generation
+    svc.set_pool_health("cloud", False)
+    replan = ctx.plan(q)
+    if ps.generation != gen + 1 or replan is cached or \
+            replan.pool != "onprem":
+        fail(f"pools: after cloud failed, generation {gen} -> "
+             f"{ps.generation}, plan on {replan.pool}")
+    later = [svc.submit("g", bfs(i)) for i in (99, 100)]
+    if [x.pool for x in later] != ["onprem", "onprem"]:
+        fail(f"pools: failover placed {[x.pool for x in later]}")
+    svc.drain()
+    tickets += later
+    for x in tickets:
+        want_v = base.run("bfs", dict(x.query.params)).value
+        if not bits_equal(svc.result(x).value, want_v):
+            fail(f"pools: ticket #{x.ticket_id} on {x.pool} differs from "
+                 "the engine alone")
+    # 4. a delta lands; the failover answers the new version, not the
+    # old pool's cached bytes
+    old = svc.result(tickets[0]).value
+    svc.add_snapshot("g", child, as_of=1, pools=["onprem"])
+    after = svc.submit("g", tickets[0].query)
+    svc.drain()
+    want_v = svc.context("g").engine("local").run(
+        "bfs", dict(after.query.params)).value
+    if after.pool != "onprem" or \
+            not bits_equal(svc.result(after).value, want_v):
+        fail(f"pools: after the delta the failover on {after.pool} "
+             "differs from a cold run on the new version")
+    if bits_equal(old, want_v):
+        fail("pools: the check cannot see the old pool's cached bytes")
+    rows.update({
+        "pools": {p.name: [str(d) for d in p.devices] for p in ps.pools()},
+        "ledger": ledger, "spilled": svc.stats["spilled"],
+        "ticket_pools": [x.pool for x in tickets + [after]],
+        "generation": ps.generation,
+        "planted": ["ledger entry dropped",
+                    "the old pool's cached bytes after a delta"]})
+    return rows
+
+
+def _leaves(value, path=()):
+    """``(path, leaf)`` of a nested dict / list, keys as strings."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(value, (list, tuple)):
+        for i, v in enumerate(value):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, value
+
+
+def runtime_and_obs(coo) -> dict:
+    """(c): a planted transient failure retried, backpressure, the
+    metrics exposition and the plan-accuracy meter."""
+    from repro_torch.core import obs
+    from repro_torch.core import registry as R
+    from repro_torch.core import runtime as RT
+    from repro_torch.core.query import GraphQuery as Q
+    from repro_torch.core.service import GraphAnalyticsService
+    from repro_torch.launch.calibrate import fit_profile
+    V = coo.n_vertices
+    svc = GraphAnalyticsService(
+        interactive_threshold_s=0.0, trace_depth=16,
+        tier_depth={"batch": 2},
+        retry=RT.RetryPolicy(max_attempts=3, base_s=1e-3, cap_s=1e-2))
+    svc.add_graph("g", coo)
+    base = svc.context("g").engine("local")
+    R.install_fault("bfs", R.FailNTimes(1))
+    try:
+        t = svc.submit("g", Q.bfs([1]))
+        svc.drain()
+    finally:
+        R.uninstall_fault("bfs")
+    want = base.run("bfs", {"sources": (1,)}).value
+    if t.status != "done" or t.attempts != 2 or \
+            not bits_equal(svc.result(t).value, want):
+        fail(f"runtime: the retried ticket {t.status} after {t.attempts} "
+             "attempts, or its bytes differ")
+    svc.submit("g", Q.bfs([2]))
+    svc.submit("g", Q.bfs([3]))
+    try:
+        svc.submit("g", Q.bfs([4]))
+        fail("runtime: no backpressure at the batch tier's depth budget")
+    except RT.Backpressure as e:
+        bp = {"tier": e.tier, "depth": e.depth, "budget": e.budget}
+    svc.drain()
+    svc.call("g", Q.pagerank(tol=PAGERANK_HALT_L1 / V, max_iters=8))
+    m = svc.metrics()
+    parsed = obs.parse_prometheus(svc.metrics_text())
+    # every numeric leaf of metrics() under its documented name (``gas``
+    # and the path's keys, each with [^a-zA-Z0-9_] as "_"), but the
+    # names two leaves share (the latency buckets, ROADMAP.md §3)
+    names = [("_".join(re.sub(r"[^a-zA-Z0-9_]", "_", p)
+                        for p in ("gas",) + path), value)
+             for path, value in _leaves(m)]
+    counts = collections.Counter(n for n, _ in names)
+    colliding = sorted(n for n, c in counts.items() if c > 1)
+    checked = 0
+    for name, value in names:
+        if counts[name] > 1 or isinstance(value, str):
+            continue
+        back = parsed.get(name)
+        if back is None or (value is None and not math.isnan(back)) or \
+                (value is not None and not math.isclose(
+                    back, float(value), rel_tol=1e-9, abs_tol=1e-12)):
+            fail(f"obs: {name} = {value} parsed back as {back}")
+        checked += 1
+    # the meter's calibration samples (not in metrics()): one a resolved
+    # execution, as many as metrics() counts
+    samples = svc._accuracy.calibration_samples()
+    if not samples or not all(samples.values()) or \
+            sum(map(len, samples.values())) != m["accuracy"]["samples"]:
+        fail(f"obs: calibration samples {samples} against "
+             f"{m['accuracy']['samples']} counted")
+    fitted = fit_profile(samples, source="chip_smoke phase 13 (c)")
+    if set(fitted.algo_time_scale) != set(samples):
+        fail(f"obs: fit_profile fitted {sorted(fitted.algo_time_scale)} "
+             f"from samples of {sorted(samples)}")
+    return {"retry": {"status": t.status, "attempts": t.attempts},
+            "backpressure": bp, "metrics_checked": checked,
+            "colliding_names": colliding,
+            "calibration_samples": {k: len(v) for k, v in samples.items()},
+            "fitted_scale": dict(fitted.algo_time_scale),
+            "counters": m["counters"]}
+
+
+def calibration_run() -> dict:
+    """(d): ``launch/calibrate.py`` at CALIBRATE_SCALES into ``build/``,
+    in this process so its launches are counted; the result loaded (the
+    generation bumps), round-tripped, and set beside the checked-in
+    profile, which is active again afterwards."""
+    import shutil
+
+    from repro_torch.core import planner as P
+    from repro_torch.launch import calibrate
+    out = ROOT / "build" / "calibration" / "profile.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    calibrate.main(["--scales", CALIBRATE_SCALES, "--repeats", "1",
+                    "--out", str(out)])
+    secs = time.perf_counter() - t0
+    gen = P.calibration_generation()
+    fitted = P.load_calibration(out)
+    if P.calibration_generation() != gen + 1 or \
+            P.active_calibration() is not fitted:
+        fail("calibration: loading the profile did not bump the generation")
+    again = out.with_name("again.json")
+    fitted.to_json(again)
+    if P.CalibrationProfile.from_json(again) != fitted:
+        fail("calibration: the profile does not round-trip through JSON")
+    checked_in = P.load_reference_calibration()
+    shutil.rmtree(out.parent, ignore_errors=True)
+    return {"seconds": secs, "source": fitted.source,
+            "fitted": {"algo_time_scale": dict(fitted.algo_time_scale),
+                       "superstep_edge_bytes":
+                           dict(fitted.superstep_edge_bytes),
+                       "interactive_threshold_s":
+                           fitted.interactive_threshold_s},
+            "checked_in": {"source": checked_in.source,
+                           "algo_time_scale":
+                               dict(checked_in.algo_time_scale),
+                           "superstep_edge_bytes":
+                               dict(checked_in.superstep_edge_bytes),
+                           "interactive_threshold_s":
+                               checked_in.interactive_threshold_s}}
+
+
+def service_tier_phase(coo, paths) -> dict:
+    """Phase 13: (a)-(d) in turn, each sub-phase's launches counted from
+    0 into ``paths``."""
+    import torch
+    out, t_phase = {}, time.perf_counter()
+    size = f"V=2^{round(math.log2(coo.n_vertices))}"
+    state = {}
+
+    def catalog():
+        row, svc = incremental_catalog(coo)
+        state["child"] = svc.context("g", as_of=1).coo   # (b)'s delta
+        return row
+
+    for key, path, run in (
+            ("a", f"service tier (a) incremental catalog {size}", catalog),
+            ("b", f"service tier (b) hybrid-cloud pools {size}",
+             lambda: hybrid_pools(coo, state.pop("child"))),
+            ("c", f"service tier (c) runtime and obs {size}",
+             lambda: runtime_and_obs(coo)),
+            ("d", CALIBRATE_PATH, calibration_run)):
+        reset_counts()
+        t0 = time.perf_counter()
+        row = run()
+        paths[path] = launch_counts()
+        row["seconds"] = time.perf_counter() - t0
+        row["launches"] = paths[path]
+        log(f"service ({key}) " + json.dumps(row, default=str))
+        out[key] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def build_all():
@@ -4380,9 +4952,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = json.loads(host_work_wait(graph_helper, "g4.json").read_text())
     g4 = torch.load(HOST_GRAPH_DIR / "g4.pt", weights_only=False).to("cuda")
-    graph_helper.wait()
-    import shutil
-    shutil.rmtree(HOST_GRAPH_DIR, ignore_errors=True)
+    (HOST_GRAPH_DIR / "g4.pt").unlink()   # the helper goes on to phase 13's
     log(f"graph V=2^{MAIN_LOG2V}=2**{MAIN_LOG2V} seed=3: {g4.n_edges} "
         f"directed edges, host build {built['seconds']:.1f} s beside phases "
         f"2-9 (waited and loaded {time.perf_counter() - t0:.1f} s)")
@@ -4513,6 +5083,28 @@ def main() -> int:
     # beside the card's phases) against phases 8 and 6
     dry_row = dryrun_phase(helper, train_row, serve_rows)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 12 done")
+
+    # 13. the service tier on phase 13's snapshot, built by the graph
+    # helper beside phases 2-12 (the counts are reset inside, just before
+    # each sub-phase)
+    t0 = time.perf_counter()
+    built13 = json.loads(host_work_wait(graph_helper, "g13.json")
+                         .read_text())
+    g13 = torch.load(HOST_GRAPH_DIR / "g13.pt",
+                     weights_only=False).to("cuda")
+    o, _ = graph_helper.communicate(timeout=HOST_WORK_DEADLINE_S)
+    if graph_helper.returncode != 0:
+        fail(f"the graph helper exited {graph_helper.returncode}:\n"
+             f"{o[-3000:]}")
+    import shutil
+    shutil.rmtree(HOST_GRAPH_DIR, ignore_errors=True)
+    log(f"graph V=2^{SERVICE_LOG2V} user-follow seed=5: {g13.n_edges} "
+        f"directed edges, host build {built13['seconds']:.1f} s beside "
+        f"phases 2-12 (waited and loaded {time.perf_counter() - t0:.1f} s)")
+    service_row = service_tier_phase(g13, paths)
+    del g13
+    log(f"service: phase 13 took {service_row['phase_s']:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 13 done")
     must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
                 ("pregel_superstep", "ell_intersect"),
             FORCED_BATCH_PATH: ("pregel_superstep_batched",),
@@ -4521,7 +5113,8 @@ def main() -> int:
             SERVE_PATH: ("flash_attention",),
             LM_MESH_NCCL_PATH: ("flash_attention",),
             family_path("olmoe-1b-7b"): ("flash_attention",),
-            family_path("hymba-1.5b"): ("flash_attention",)}
+            family_path("hymba-1.5b"): ("flash_attention",),
+            CALIBRATE_PATH: ("ell_intersect",)}
     for path, names in must.items():
         for name in names:
             if paths[path][name] == 0:
@@ -4566,6 +5159,7 @@ def main() -> int:
         "train": train_row, "restart": restart_row,
         "families": family_rows, "mesh": mesh_rows,
         "lm_mesh": lm_mesh_rows, "dryrun": dry_row,
+        "service": service_row,
         "seconds": time.perf_counter() - t_start}}))
     log(card)
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -198,18 +198,20 @@ class Engine:
             return self._oriented
 
     def _measured_degree(self, direction: str) -> int:
-        """True (uncapped) max in- or out-degree, computed host-side
-        once and cached — sizes the superstep ELL layouts and feeds the
-        planner's measured stats."""
+        """True (uncapped) max in- or out-degree, computed once where
+        the COO lives and cached — sizes the superstep ELL layouts and
+        feeds the planner's measured stats.  (The reference counts on
+        the host; on an H100 that copy and count of 3e7 edge ids took
+        0.3 s of a new version's first seeded call.)"""
         key = "max_degree" if direction == "in" else "max_out_degree"
         with self._meta_lock:
             v = self._measured.get(key)
         if v is None:
             coo = self.coo
             col = coo.dst if direction == "in" else coo.src
-            arr = G.to_numpy(col[: coo.n_edges])
-            v = int(np.bincount(arr, minlength=coo.n_vertices).max()) \
-                if arr.size else 0
+            v = int(torch.bincount(col[: coo.n_edges],
+                                   minlength=coo.n_vertices).max()) \
+                if coo.n_edges else 0
             with self._meta_lock:
                 self._measured[key] = v
         return v

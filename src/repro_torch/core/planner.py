@@ -18,8 +18,10 @@ query plan, like the paper's rule of thumb was.
 
 The analytic constants below are the JAX reference package's, kept
 unchanged so that both packages choose the same (engine, variant) for
-the same query; they are not measurements of any GPU.  The port ships no
-fitted calibration profile yet, so it always starts on these defaults.
+the same query; they are not measurements of any GPU.  The profile
+fitted on the card (``core/calibration/reference_profile.json``, written
+by ``python -m repro_torch.launch.calibrate``) is loaded over them at
+import; tests pin the analytic defaults.
 
 Two feedback loops replace analytic guesses with measurements:
 
@@ -27,9 +29,9 @@ Two feedback loops replace analytic guesses with measurements:
   in-degree, the built ``OrientedELL`` row width) that engines feed back
   from derived state they have already paid to build — cost hooks prefer
   them over their analytic stand-ins.
-* The model constants live in a :class:`CalibrationProfile` that a
-  calibration sweep writes from wall-clock measurements and
-  :func:`load_calibration` applies process-wide —
+* The model constants live in a :class:`CalibrationProfile` that
+  ``python -m repro_torch.launch.calibrate`` writes from wall-clock
+  measurements and :func:`load_calibration` applies process-wide —
   including the service tier thresholds (interactive-vs-batch
   classification and the admission budget).
 """
@@ -105,7 +107,7 @@ class CalibrationProfile:
     """Every constant the cost model and the service tiering consume.
 
     ``algo_time_scale`` maps an algorithm name to a measured/modeled
-    wall-clock ratio: a calibration sweep
+    wall-clock ratio: ``python -m repro_torch.launch.calibrate``
     fits one multiplier per algorithm from its timing sweep, so the
     planner's relative estimates are anchored to real executions instead
     of the analytic bandwidth terms alone.  ``interactive_threshold_s``
@@ -125,8 +127,9 @@ class CalibrationProfile:
     algo_time_scale: Mapping[str, float] = dataclasses.field(
         default_factory=dict)
     # Per-superstep edge-traffic multipliers for the superstep execution
-    # variants (overrides of _SUPERSTEP_EDGE_BYTES; fitted by a
-    # calibration sweep from per-variant timings).
+    # variants (overrides of _SUPERSTEP_EDGE_BYTES; fitted by
+    # ``python -m repro_torch.launch.calibrate`` from per-variant
+    # timings).
     superstep_edge_bytes: Mapping[str, float] = dataclasses.field(
         default_factory=dict)
     source: str = "analytic-defaults"
@@ -168,10 +171,12 @@ class CalibrationProfile:
         return cls(**d)
 
 
-#: Where a fitted calibration profile is looked for at import.  The port
-#: ships none (no GPU calibration sweep exists yet), so the import-time
-#: load finds nothing and the analytic defaults stay active; a profile
-#: dropped here is auto-loaded.
+#: The checked-in calibration profile: fitted on an H100 by
+#: ``python -m repro_torch.launch.calibrate`` (its ``source`` names the
+#: card and its power limit).  It is auto-loaded at import so callers
+#: start from the card's measured constants; tests pin the analytic
+#: defaults (``set_calibration(None)``) because the fitted values are
+#: card-specific.
 _REFERENCE_PROFILE = os.path.join(os.path.dirname(__file__),
                                   "calibration", "reference_profile.json")
 

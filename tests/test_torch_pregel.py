@@ -261,6 +261,22 @@ def test_fused_plain_and_kernel_paths_agree():
     assert a.iterations == b.iterations
 
 
+@pytest.mark.parametrize("gname", GRAPHS)
+@pytest.mark.parametrize("direction", ["in", "out"])
+def test_measured_degree_matches_reference(gname, direction):
+    """The uncapped max degree that gates the variants and sizes their
+    layouts, counted where the port's COO lives, is the reference's
+    host count, on directed graphs (in and out differ)."""
+    s, d, _, n = _edges(gname)
+    jg = JG.build_coo(s, d, n)
+    tg = TG.build_coo(s, d, n, device=CPU)
+    got = LocalEngine(tg, device=CPU)._measured_degree(direction)
+    assert got == JLocal(jg)._measured_degree(direction)
+    col = np.asarray(jg.dst if direction == "in" else jg.src)[: jg.n_edges]
+    assert got == (int(np.bincount(col, minlength=n).max()) if col.size
+                   else 0)
+
+
 def test_budget_fallback_is_exact(monkeypatch):
     """Past the uncapped-ELL byte budget the variants take the dense path
     — forced variants still return the oracle's bits."""
