@@ -62,10 +62,12 @@ ids and phase 7's LPA and HITS graphs (beside phases 3-10).
               within 2e-2 (bf16) and 1e-4 (float32) absolute; planted
               faults (softcap dropped, window a tile short, first kv tile
               dropped) must fail that check; pregel_superstep's batched
-              entry (state [Vx, B], B = 1, 3, 16, 33; min/max/sum,
-              int32/float32) on the ragged and holey layouts, and at the
-              fused batches' shapes (B = 16 on the 2^20 in-ELL, B = 8 on
-              the 2^24 one); timed with CUDA events
+              entry (state [Vx, B], B = 1, 3, 4, 8, 16, 33, 64, and x
+              4 bytes off 16-byte alignment at B = 4, 8, 16;
+              min/max/sum, int32/float32) on the ragged and holey
+              layouts, and at the fused batches' shapes (B = 16 on the
+              2^20 in-ELL, B = 8 on the 2^24 one and on its permuted
+              ids); timed with CUDA events
               (median of 10 samples of 10 back-to-back calls; the plain
               versions at the main-path shapes 3 samples of 1) beside
               the bound and, where one PyTorch call computes the same
@@ -345,6 +347,9 @@ RUN_BATCH_PATH = f"LocalEngine.run_batch V=2^{PHASE3_LOG2V}"
 FORCED_BATCH_PATH = (f"LocalEngine.run_superstep(batched_spec, 'fused') "
                      f"V=2^{PHASE3_LOG2V}")
 SERVICE_TICKETS = 8        # phase-7 service fusion: tickets of each kind
+# widths of phase 2's batched checks on small layouts: one column, columns
+# that are not 4-column groups, 4-column groups, past one pass of 32
+BATCHED_WIDTHS = (1, 3, 4, 8, 16, 33, 64)
 JACCARD_PAIRS = 4096       # pairs in one Jaccard ticket
 TWO_HOP_USERS_LOG2 = 20    # the safety graph: 2^20 users,
 TWO_HOP_IDS_LOG2 = 18      # 2^18 identifiers,
@@ -573,11 +578,25 @@ def _batched_combos():
     ]
 
 
+def _misaligned(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary (a view at an odd offset)."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    if view.data_ptr() % 16 != 4 or not view.is_contiguous():
+        fail("could not make a view 4 bytes off 16-byte alignment")
+    return view
+
+
 def check_batched(label, nbr, mask, w, gen, widths, timed, results,
-                  names=None):
+                  names=None, misaligned=False):
     """pregel_superstep's [Vx, B] entry (``pregel_superstep_batched``, the
     fused batch of B queries) vs the plain version on one layout, for
-    each width B: min/max bit-identical, float sums within rtol 1e-5."""
+    each width B: min/max and int32 sums bit-identical, float sums within
+    rtol 1e-5.  ``misaligned``: x is a view 4 bytes off 16-byte alignment
+    (the entry's 4-byte loads)."""
     import torch
     from repro_torch.core.pregel import Lifted
     from repro_torch.kernels.pregel_superstep import ops
@@ -590,12 +609,14 @@ def check_batched(label, nbr, mask, w, gen, widths, timed, results,
             kind = {"cc_max": "cc", "sssp_max": "sssp"}.get(name, name)
             x = torch.stack([_state(kind, V, gen) for _ in range(b)],
                             dim=1).contiguous()
+            if misaligned:
+                x = _misaligned(x)
             kw = dict(message=Lifted(msg, (-1, None)), op=op,
                       identity=ident, message_dtype=md)
             got = ops.fused_superstep(nbr, mask, w, x, **kw)
             torch.cuda.synchronize()
             want = _plain_by_rows(superstep_plain, nbr, mask, w, x, **kw)
-            if op == "sum":
+            if op == "sum" and got.dtype != torch.int32:
                 ok = got.dtype == want.dtype and torch.allclose(
                     got, want, rtol=1e-5, atol=0.0)
             else:
@@ -603,6 +624,8 @@ def check_batched(label, nbr, mask, w, gen, widths, timed, results,
             row = {"kernel": "pregel_superstep_batched", "layout": label,
                    "combo": name, "V": V, "K": K, "B": b, "ok": bool(ok),
                    "max_abs_err": max_abs_err(got, want)}
+            if misaligned:
+                row["x_offset_bytes"] = x.data_ptr() % 16
             if timed:
                 reads_w = msg in (ops.msg_src_plus_w, ops.msg_src_times_w)
                 bound, by = _bound(mask, reads_w, x, got,
@@ -4903,15 +4926,19 @@ def main() -> int:
         nbr, mask, w, _ = _holey(v, k, off, gen)
         check_kernel(f"holes {v}x{k}, rows off 16 B by {off}", nbr, mask, w,
                      gen, False, checks)
-    # the batched entry ([Vx, B] state) on the same kinds of layouts
+    # the batched entry ([Vx, B] state) on the same kinds of layouts, at
+    # widths of 4-column groups and not, and x 4 bytes off alignment
     for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200), (1001, 20),
                  (40, 3000)):
         check_batched(f"ragged {v}x{k}", *_ragged(v, k, gen), gen,
-                      (1, 3, 16, 33), False, checks)
+                      BATCHED_WIDTHS, False, checks)
     for v, k, off in ((1000, 19, 3), (500, 129, 5), (40, 3000, 1)):
         nbr, mask, w, _ = _holey(v, k, off, gen)
         check_batched(f"holes {v}x{k}, rows off 16 B by {off}", nbr, mask,
-                      w, gen, (1, 3, 16, 33), False, checks)
+                      w, gen, BATCHED_WIDTHS, False, checks)
+        check_batched(f"holes {v}x{k}, rows off 16 B by {off}, x off 4 B",
+                      nbr, mask, w, gen, (4, 8, 16), False, checks,
+                      misaligned=True)
     check_intersect_rows(checks)
     check_flash(checks)
     for v, k in ((1000, 37), (300, 1), (64, 0), (2000, 200)):
@@ -4976,6 +5003,8 @@ def main() -> int:
             del ell
             check_kernel(f"{label} permuted ids", *permuted, gen, True,
                          checks)
+            check_batched(f"{label} permuted ids", *permuted, gen,
+                          (SERVICE_TICKETS,), True, checks, names=("bfs",))
             del permuted
         else:
             del ell
@@ -5146,12 +5175,13 @@ def main() -> int:
                 and r["op"] == "sum")
     attn = next(r for r in checks if r["layout"] == "gemma2-2b global")
 
-    def batched(log2v):
+    def batched(layout):
         return next(r for r in checks
                     if r.get("kernel") == "pregel_superstep_batched"
-                    and r["layout"] == f"in-ELL 2^{log2v}"
-                    and r["combo"] == "bfs")
-    bat, bat20 = batched(MAIN_LOG2V), batched(PHASE3_LOG2V)
+                    and r["layout"] == layout and r["combo"] == "bfs")
+    bat = batched(f"in-ELL 2^{MAIN_LOG2V}")
+    bat_perm = batched(f"in-ELL 2^{MAIN_LOG2V} permuted ids")
+    bat20 = batched(f"in-ELL 2^{PHASE3_LOG2V}")
     log(json.dumps({"summary": {
         "engine": engine_rows, "superstep_breakdown": breakdown,
         "batch": batch_rows, "platform": platform_rows,
@@ -5184,6 +5214,7 @@ def main() -> int:
          "max_abs_err": errs("pregel_superstep_batched"),
          **{k: bat[k] for k in numbers},
          "library": bat["library"],
+         "permuted_ids": {k: bat_perm[k] for k in numbers},
          f"at_2^{PHASE3_LOG2V}_x{bat20['B']}": {k: bat20[k] for k in numbers},
          "shape": f"BFS (float32, x+1, min) over [V, {bat['B']}] state on "
                   f"the V=2^{MAIN_LOG2V} in-ELL, K={bat['K']}"},

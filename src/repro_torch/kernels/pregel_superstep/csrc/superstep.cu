@@ -63,10 +63,20 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <atomic>
 #include <climits>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+
+// The file compiles whole, or in three parts that link into one library
+// (-DSUPERSTEP_PART=1, 2, 3; ops.py builds them at once): the 1-D entry,
+// the batched entry with its kernels on int32 state, its kernels on
+// float32 state.
+#ifndef SUPERSTEP_PART
+#define SUPERSTEP_PART 0
+#endif
+#define SUPERSTEP_HAS(part) (SUPERSTEP_PART == 0 || SUPERSTEP_PART == (part))
 
 namespace {
 
@@ -175,7 +185,7 @@ __device__ __forceinline__ A from_bits(int b) {
 }
 
 // A tile: rows [row0, row0 + rows), whose slots [s0, s0 + n) of the
-// flat [V, K] arrays are walked in pieces of kPiece slots (more than one
+// flat [V, K] arrays are walked in pieces of `piece` slots (more than one
 // only for a row longer than a piece).
 struct Tile {
   long long row0;
@@ -186,16 +196,18 @@ struct Tile {
 };
 
 __device__ __forceinline__ Tile make_tile(long long V, int K, int R,
-                                          long long t) {
+                                          long long t, int piece = kPiece) {
   Tile s;
   s.row0 = t * R;
   const long long left = V - s.row0;
   s.rows = left < R ? static_cast<int>(left) : R;
   s.s0 = s.row0 * K;
   s.n = s.rows * K;
-  s.pieces = (s.n + kPiece - 1) / kPiece;
+  s.pieces = (s.n + piece - 1) / piece;
   return s;
 }
+
+#if SUPERSTEP_HAS(1)
 
 // What a slot contributes: its message, cast to the output type, where
 // the mask is on; the fill where it is off.
@@ -397,8 +409,11 @@ cudaError_t by_prog(int program, int op, int out_type, const Args& a) {
   }
 }
 
+#endif  // SUPERSTEP_HAS(1)
+
 }  // namespace
 
+#if SUPERSTEP_HAS(1)
 // C entry point (bound with ctypes).  Every pointer and the stream come in
 // as void*; rows_per_tile is R (ops.py:_rows_per_tile).  The return value is
 // cudaGetLastError() after the launch (0 on success), or
@@ -430,6 +445,7 @@ extern "C" int pregel_superstep(const void* nbr, const void* mask,
   }
   return static_cast<int>(err);
 }
+#endif  // SUPERSTEP_HAS(1)
 
 // ---------------------------------------------------------------------------
 // The same superstep over batched state: x is [Vx, B] row-major, out is
@@ -449,75 +465,65 @@ extern "C" int pregel_superstep(const void* nbr, const void* mask,
 // dims; wrapper: ops.py:fused_superstep, which routes 2-D state here.
 //
 // What bounds it: bytes, as the 1-D entry (the mask in full, nbr and w at
-// the live slots, x and out once), with x and out B times as wide.
+// the live slots, x and out once), with x and out B times as wide.  On
+// the main path's in-ELL (V = 2^24, K = 19, 7.75 live slots a row) at
+// B = 8 that is 1.91 GB, 0.571 ms at 3.35 TB/s; x and out are 0.54 GB
+// each of it.  A live slot needs x[id, 0:B], B x 4 contiguous bytes: one
+// whole 32-byte sector at B = 8, where the 1-D entry uses 4 bytes of
+// every sector it gathers.  What keeps a kernel from the bound is the
+// latency of its dependent loads (mask, then ids, then x) with too few
+// bytes in flight, the lanes it leaves idle, and the B combines every slot
+// costs (a warp walks its rows' slots in step, dead or live).
 //
-// Design, simple first:
-//   * A warp owns a row (warps walk the rows grid-stride).  Lanes take the
-//     row's slots 32 at a time: each lane reads one slot's mask byte, and
-//     its id (clamped into [0, Vx)) and weight only where the slot is
-//     live; a ballot and shuffles hand every slot to the whole warp, in
-//     slot order.
-//   * Lanes are the columns: at each live slot, lane b gathers x[id, b],
-//     so a warp reads 32 neighbouring 4-byte words of row id, and each
-//     lane combines its column in slot order, the fill at a dead slot, as
-//     the 1-D kernel does: min/max bit-identical to the plain version, a
-//     float sum in a fixed order.  B > 32 walks the columns in chunks of
-//     32, reading the row's slots again for each chunk.
+// Design: the 1-D entry's tiles, with the columns as a second axis of the
+// work; every lane busy at every B, every gather 16 bytes, a thread's
+// gathers in flight together, the loads of the next tile in flight while
+// a tile is combined, and a kernel for each path so that each gets the
+// registers it needs.
+//   * A block owns a tile of R rows whose slots are one contiguous run of
+//     the flat [V, K] arrays; the columns go in passes of C, all B at once
+//     up to 1024, in 4-column groups where B is a multiple of 4 and x and
+//     out are 16-byte aligned, else single columns with 4-byte loads.  The
+//     wrapper computes R, the slots P a block holds, C, the vector flag
+//     and the shared memory (ops.py:_batched_geometry); this file checks
+//     them.  Blocks walk the tiles grid-stride, as many resident on each
+//     SM as fit.  A tile's ids are read once for all B columns.
+//   * Rows of at most kShortRow slots in 4-column groups (the main path's
+//     in-ELLs have K = 18-19): a tile holds a row for each column group of
+//     the block's threads (R = 128 at B = 8).  Its mask words, then the
+//     ids (and weights) of its groups with a live slot only, come into
+//     shared memory by cp.async, which holds no register while in flight:
+//     while the block walks tile j, tile j + 1's ids and tile j + 2's mask
+//     are copied (three mask buffers, two of ids and weights), so the two
+//     dependent loads of a tile hide behind the walk of another.  A
+//     thread per (row, 4-column group) walks its row kShortPairs slots at
+//     a time: at each live slot a 16-byte gather of x[id, c:c+4], all of
+//     them issued before the first is combined, then the edge program,
+//     the cast to the channel dtype (as the 1-D entry's) and the combine,
+//     the fill at a dead slot; out[v, c:c+4] in one store.  Values stay in
+//     registers.  (cp.async with an L2 evict-first policy raised an
+//     illegal instruction on the H100, so these copies carry no hint.)
+//   * Longer rows, and single columns, go in pieces of P slots (a row
+//     longer than a piece is a tile of its own, its partial results
+//     carried to the next piece in shared memory), so that a row's
+//     gathers spread over the block: step 1 reads the piece's mask words,
+//     then its live groups' ids (and weights), as 16-byte evict-first
+//     loads (__ldcs) into shared memory; step 2, threads take (slot,
+//     column group) pairs, kPairs gathers a thread in flight, and put each
+//     value into shared memory in slot order (8192 values a piece: P =
+//     1024 at B = 8); step 3, a thread per (row, column group) combines
+//     the row's values in slot order.  Unaligned arrays and a ragged last
+//     group are read slot by slot.
+//   * Either way the order is the 1-D entry's, and that of the
+//     warp-per-row design this one replaced: min/max bit-identical to the
+//     plain version, float sums the same bytes as before, int32 sums wrap,
+//     bf16/f16 accumulate in float32 and round once.
 //   * K = 0 rows are the fill.  Offsets are 64-bit.  The launch goes to
 //     the caller's stream; the entry point returns cudaGetLastError().
 
-namespace {
-
-constexpr unsigned kFullWarp = 0xFFFFFFFFu;
-
-template <typename TIn, int PROG, int OP, int OUT>
-__global__ void __launch_bounds__(kThreads) superstep_batched_kernel(
-    const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
-    const float* __restrict__ w, const TIn* __restrict__ x,
-    typename OutType<OUT>::type* __restrict__ out, long long V, int K,
-    int Vx, int B, double fill) {
-  using Acc = typename AccType<OUT>::type;
-  constexpr bool reads_w = PROG == SRC_PLUS_W || PROG == SRC_TIMES_W;
-  const int lane = threadIdx.x & 31;
-  const long long warps =
-      static_cast<long long>(gridDim.x) * (kThreads / 32);
-  const Acc fill_acc = to_acc<OUT>(fill);
-  for (long long v = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
-                     (threadIdx.x >> 5);
-       v < V; v += warps) {
-    const long long row = v * K;
-    for (int c0 = 0; c0 < B; c0 += 32) {
-      const int b = c0 + lane;
-      const bool has_col = b < B;
-      Acc acc = K == 0 ? fill_acc : neutral<OP, Acc>();
-      for (int k0 = 0; k0 < K; k0 += 32) {
-        const int k = k0 + lane;
-        bool live = false;
-        int id = 0;
-        float wk = 0.f;
-        if (k < K && __ldcs(mask + row + k)) {
-          live = true;
-          id = __ldcs(nbr + row + k);
-          id = id < 0 ? 0 : (id >= Vx ? Vx - 1 : id);
-          if constexpr (reads_w) wk = __ldcs(w + row + k);
-        }
-        const unsigned live_bits = __ballot_sync(kFullWarp, live);
-        const int n = K - k0 < 32 ? K - k0 : 32;
-        for (int j = 0; j < n; ++j) {
-          const int idj = __shfl_sync(kFullWarp, id, j);
-          const float wj = __shfl_sync(kFullWarp, wk, j);
-          Acc val = fill_acc;
-          if (((live_bits >> j) & 1u) && has_col) {
-            val = to_acc<OUT>(edge_program<PROG>(
-                __ldg(x + static_cast<long long>(idj) * B + b), wj));
-          }
-          acc = combine<OP>(acc, val);
-        }
-      }
-      if (has_col) out[v * B + b] = store_value<OUT>(acc);
-    }
-  }
-}
+// The parts' interface: the batched entry's arguments, and its dispatch
+// on int32 and on float32 state (parts 2 and 3).
+namespace superstep_parts {
 
 struct BatchedArgs {
   const void* nbr;
@@ -529,36 +535,617 @@ struct BatchedArgs {
   int K;
   int Vx;
   int B;
+  int R;
+  int P;
+  int C;
+  bool vec;
+  bool aligned;
+  bool shrt;
+  int smem;
   double fill;
   cudaStream_t stream;
 };
 
+cudaError_t batched_int32(int program, int op, int out_type,
+                          const BatchedArgs& a);
+cudaError_t batched_float32(int program, int op, int out_type,
+                            const BatchedArgs& a);
+
+}  // namespace superstep_parts
+
+namespace {
+
+using superstep_parts::BatchedArgs;
+
+constexpr int kShortRow = 64;             // K at most: rows in registers
+constexpr int kMaxShortPiece = 3072;      // most slots a short-row tile
+constexpr int kMaxPieceBatched = 2048;    // most slots a longer rows' piece
+constexpr int kShortPairs = 6;            // a row walk's gathers in flight
+constexpr int kShortBlocks = 4;           // short rows: blocks an SM holds
+constexpr int kPairs = 8;                 // longer rows: gathers in flight
+constexpr int kLongBlocks = 3;            // longer rows: blocks an SM holds
+constexpr int kMaxSmem = 232448;          // a block's shared memory (H100)
+
+__device__ __forceinline__ int clamp_id(int id, int Vx) {
+  return id < 0 ? 0 : (id >= Vx ? Vx - 1 : id);
+}
+
+// Shared memory of a block, bytes.  Rows of at most kShortRow slots: two
+// tiles' ids [P] and weights [P] and three tiles' mask bytes [P] (the
+// pipeline of step 1).  Longer rows: ids [P], weights [P], the piece's
+// values [P x C] (from a 16-byte boundary, P being a multiple of 4) and
+// the carried partials of a long row [C].  ops.py:_batched_geometry
+// computes the same.
+__host__ __device__ __forceinline__ long long batched_smem_bytes(int P, int C,
+                                                                 bool shrt) {
+  return shrt ? 19LL * P
+              : 4 * (2LL * P + static_cast<long long>(P) * C + C);
+}
+
+// cp.async (sm_80 and later): a copy from global to shared memory that
+// holds no register while in flight (.cg: not through L1).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Step 1: a piece's ids (clamped, -1 where dead) and weights.  A thread
+// takes at most kGroups 4-slot groups: all their mask words are loaded,
+// then the ids (and weights) of all their live groups, so a piece costs
+// two dependent loads whatever its size.
+template <int kGroups, bool kReadsW>
+__device__ __forceinline__ void load_piece_slots(
+    const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
+    const float* __restrict__ w, long long base, int count, int Vx,
+    bool aligned, int* ids_s, float* ws_s) {
+  const bool vec = aligned && !(base & 3);
+  uint32_t m[kGroups];
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int at = 4 * (threadIdx.x + q * kThreads);
+    const long long s = base + at;
+    m[q] = 0;
+    if (at >= count) continue;
+    if (vec && at + 4 <= count) {
+      m[q] = __ldcs(reinterpret_cast<const unsigned int*>(mask + s));
+    } else {                              // slot by slot
+      for (int u = 0; u < 4 && at + u < count; ++u) {
+        int id = -1;
+        if (__ldcs(mask + s + u)) {
+          id = clamp_id(__ldcs(nbr + s + u), Vx);
+          if constexpr (kReadsW) ws_s[at + u] = __ldcs(w + s + u);
+        }
+        ids_s[at + u] = id;
+      }
+    }
+  }
+  int4 raw[kGroups];
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int at = 4 * (threadIdx.x + q * kThreads);
+    if (m[q]) {
+      raw[q] = __ldcs(reinterpret_cast<const int4*>(nbr + base + at));
+      if constexpr (kReadsW) {
+        *reinterpret_cast<float4*>(ws_s + at) =
+            __ldcs(reinterpret_cast<const float4*>(w + base + at));
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int at = 4 * (threadIdx.x + q * kThreads);
+    if (!(vec && at + 4 <= count)) continue;
+    int4 ids = make_int4(-1, -1, -1, -1);
+    if (m[q]) {
+      ids.x = (m[q] & 0xFFu) ? clamp_id(raw[q].x, Vx) : -1;
+      ids.y = (m[q] & 0xFF00u) ? clamp_id(raw[q].y, Vx) : -1;
+      ids.z = (m[q] & 0xFF0000u) ? clamp_id(raw[q].z, Vx) : -1;
+      ids.w = (m[q] & 0xFF000000u) ? clamp_id(raw[q].w, Vx) : -1;
+    }
+    *reinterpret_cast<int4*>(ids_s + at) = ids;
+  }
+}
+
+// VW consecutive elements: one 16-byte load or store for VW = 4.
+template <int VW, typename T>
+__device__ __forceinline__ void load_x(const T* __restrict__ p, T* v) {
+  if constexpr (VW == 4) {
+    const int4 r = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = from_bits<T>(r.x);
+    v[1] = from_bits<T>(r.y);
+    v[2] = from_bits<T>(r.z);
+    v[3] = from_bits<T>(r.w);
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vals(int* p, const int* v) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void load_vals(const int* p, int* v) {
+  if constexpr (VW == 4) {
+    const int4 r = *reinterpret_cast<const int4*>(p);
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// The output's bits, for stores of four elements at once.
+template <int OUT>
+__device__ __forceinline__ unsigned out_bits(typename AccType<OUT>::type a) {
+  if constexpr (OUT == BF16) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(a));
+  } else if constexpr (OUT == F16) {
+    return __half_as_ushort(__float2half_rn(a));
+  } else {
+    return static_cast<unsigned>(as_bits(a));
+  }
+}
+
+template <int VW, int OUT>
+__device__ __forceinline__ void store_out(
+    typename OutType<OUT>::type* __restrict__ p,
+    const typename AccType<OUT>::type* a) {
+  if constexpr (VW == 1) {
+    p[0] = store_value<OUT>(a[0]);
+  } else if constexpr (sizeof(typename OutType<OUT>::type) == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(
+        out_bits<OUT>(a[0]), out_bits<OUT>(a[1]), out_bits<OUT>(a[2]),
+        out_bits<OUT>(a[3]));
+  } else {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(out_bits<OUT>(a[0]) | (out_bits<OUT>(a[1]) << 16),
+                   out_bits<OUT>(a[2]) | (out_bits<OUT>(a[3]) << 16));
+  }
+}
+
+// Step 2: the piece's live values, VW columns a pair, into vals
+// ([slot][column] of the pass, cw columns).
+template <int VW, typename TIn, int PROG, int OUT>
+__device__ __forceinline__ void gather_piece(
+    const TIn* __restrict__ x, long long B, int c0, int cw, int count,
+    const int* ids_s, const float* ws_s, int* vals) {
+  constexpr bool reads_w = PROG == SRC_PLUS_W || PROG == SRC_TIMES_W;
+  const int G = cw / VW;                  // column groups of the pass
+  const int pairs = count * G;
+  const int ds = kThreads / G, dg = kThreads % G;
+  int s = threadIdx.x / G, g = threadIdx.x % G;
+  for (int j0 = threadIdx.x; j0 < pairs; j0 += kPairs * kThreads) {
+    TIn v[kPairs][VW];
+    int at[kPairs];                       // where the values go; -1: none
+    float wk[kPairs];
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      at[q] = -1;
+      wk[q] = 0.f;
+      if (j0 + q * kThreads < pairs) {
+        const int id = ids_s[s];
+        if (id >= 0) {
+          at[q] = s * cw + g * VW;
+          if constexpr (reads_w) wk[q] = ws_s[s];
+          load_x<VW>(x + static_cast<long long>(id) * B + c0 + g * VW, v[q]);
+        }
+      }
+      s += ds;
+      g += dg;
+      if (g >= G) {
+        g -= G;
+        ++s;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      if (at[q] < 0) continue;
+      int o[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        o[e] = as_bits(to_acc<OUT>(edge_program<PROG>(v[q][e], wk[q])));
+      }
+      store_vals<VW>(vals + at[q], o);
+    }
+  }
+}
+
+// Step 3: each (row, column group) of the piece combined in slot order;
+// a row that ends in the piece is written, one that goes on is carried.
+template <int VW, int OP, int OUT>
+__device__ __forceinline__ void combine_piece(
+    const int* ids_s, const int* vals, int* carry,
+    typename OutType<OUT>::type* __restrict__ out, long long B, int c0,
+    int cw, int K, const Tile& tile, long long off, int count,
+    typename AccType<OUT>::type fill_acc) {
+  using Acc = typename AccType<OUT>::type;
+  const int G = cw / VW;
+  const int n = tile.rows * G;
+  const int dr = kThreads / G, dg = kThreads % G;
+  int r = threadIdx.x / G, g = threadIdx.x % G;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const long long rs = static_cast<long long>(r) * K - off;
+    const int lo = rs < 0 ? 0 : (rs > count ? count : static_cast<int>(rs));
+    const long long re = rs + K;
+    const int hi = re > count ? count : static_cast<int>(re < 0 ? 0 : re);
+    if (lo < hi) {
+      Acc a[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        a[e] = rs < 0 ? from_bits<Acc>(carry[g * VW + e])
+                      : neutral<OP, Acc>();
+      }
+#pragma unroll 4
+      for (int k = lo; k < hi; ++k) {
+        // read whatever a dead slot holds and keep the fill: no branch,
+        // so the loads of several slots are in flight together
+        const bool live = ids_s[k] >= 0;
+        int b[VW];
+        load_vals<VW>(vals + k * cw + g * VW, b);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          a[e] = combine<OP>(a[e], live ? from_bits<Acc>(b[e]) : fill_acc);
+        }
+      }
+      if (re <= count) {
+        store_out<VW, OUT>(out + (tile.row0 + r) * B + c0 + g * VW, a);
+      } else {                            // the row goes on in the next piece
+#pragma unroll
+        for (int e = 0; e < VW; ++e) carry[g * VW + e] = as_bits(a[e]);
+      }
+    }
+    r += dr;
+    g += dg;
+    if (g >= G) {
+      g -= G;
+      ++r;
+    }
+  }
+}
+
+// Rows of at most kShortRow slots.  Step 1 is a pipeline of cp.async
+// copies into shared memory: while a block walks tile j, the mask words
+// of tile j + 2 and the ids (and weights) of tile j + 1's live groups are
+// in flight (the latter read where the former, copied during the walk of
+// tile j - 1, say a group is live).  Groups that cannot be copied as
+// words (arrays not aligned, a tile's ragged last group) are read slot
+// by slot instead, at the same point of the pipeline.
+
+// The mask of a tile's slots [0, count) from base, as bytes.
+__device__ __forceinline__ void issue_mask(const uint8_t* __restrict__ mask,
+                                           long long base, int count,
+                                           bool aligned, uint8_t* mask_s) {
+  const bool vec = aligned && !(base & 3);
+  for (int at = 4 * threadIdx.x; at < count; at += 4 * kThreads) {
+    if (vec && at + 4 <= count) {
+      cp_async4(mask_s + at, mask + base + at);
+    } else {
+      for (int u = 0; u < 4 && at + u < count; ++u) {
+        mask_s[at + u] = __ldcs(mask + base + at + u);
+      }
+    }
+  }
+}
+
+// The ids (and weights) of the tile's live groups, as they are in
+// memory (clamped where they are used); a dead slot's id is not read.
+template <bool kReadsW>
+__device__ __forceinline__ void issue_ids(
+    const int* __restrict__ nbr, const float* __restrict__ w, long long base,
+    int count, bool aligned, const uint8_t* mask_s, int* ids_s,
+    float* ws_s) {
+  const bool vec = aligned && !(base & 3);
+  for (int at = 4 * threadIdx.x; at < count; at += 4 * kThreads) {
+    if (vec && at + 4 <= count) {
+      if (*reinterpret_cast<const unsigned*>(mask_s + at)) {
+        cp_async16(ids_s + at, nbr + base + at);
+        if constexpr (kReadsW) cp_async16(ws_s + at, w + base + at);
+      }
+    } else {
+      for (int u = 0; u < 4 && at + u < count; ++u) {
+        if (mask_s[at + u]) {
+          ids_s[at + u] = __ldcs(nbr + base + at + u);
+          if constexpr (kReadsW) ws_s[at + u] = __ldcs(w + base + at + u);
+        }
+      }
+    }
+  }
+}
+
+// A thread per (row, 4-column group) walks its row, kShortPairs slots at
+// a time: every live slot's gather of the group in flight before the
+// first is combined; the values never leave registers.
 template <typename TIn, int PROG, int OP, int OUT>
-cudaError_t launch_batched(const BatchedArgs& a) {
-  auto kernel = superstep_batched_kernel<TIn, PROG, OP, OUT>;
-  static int resident[64] = {0};     // as in launch() above
+__device__ __forceinline__ void walk_short_rows(
+    const TIn* __restrict__ x, typename OutType<OUT>::type* __restrict__ out,
+    long long B, int c0, int cw, int K, int Vx, long long row0, int rows,
+    const uint8_t* mask_s, const int* ids_s, const float* ws_s,
+    typename AccType<OUT>::type fill_acc) {
+  using Acc = typename AccType<OUT>::type;
+  const int G = cw / 4;
+  const int n = rows * G;
+  const int dr = kThreads / G, dg = kThreads % G;
+  int r = threadIdx.x / G, g = threadIdx.x % G;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const uint8_t* ms = mask_s + r * K;
+    const int* ids = ids_s + r * K;
+    const float* ws = ws_s + r * K;
+    const TIn* xg = x + c0 + g * 4;
+    Acc a[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = neutral<OP, Acc>();
+    for (int k0 = 0; k0 < K; k0 += kShortPairs) {
+      TIn v[kShortPairs][4];
+      unsigned live = 0;
+#pragma unroll
+      for (int q = 0; q < kShortPairs; ++q) {
+        if (k0 + q < K && ms[k0 + q]) {
+          live |= 1u << q;
+          load_x<4>(xg + static_cast<long long>(clamp_id(ids[k0 + q], Vx)) *
+                              B,
+                    v[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kShortPairs; ++q) {
+        if (k0 + q >= K) break;
+        const float wk = ws[k0 + q];      // read by the programs that use it
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = combine<OP>(
+              a[e], (live >> q) & 1u
+                        ? to_acc<OUT>(edge_program<PROG>(v[q][e], wk))
+                        : fill_acc);
+        }
+      }
+    }
+    store_out<4, OUT>(out + (row0 + r) * B + c0 + g * 4, a);
+    r += dr;
+    g += dg;
+    if (g >= G) {
+      g -= G;
+      ++r;
+    }
+  }
+}
+
+template <typename TIn, int PROG, int OP, int OUT>
+__global__ void __launch_bounds__(kThreads, kShortBlocks)
+    superstep_batched_short_kernel(
+    const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
+    const float* __restrict__ w, const TIn* __restrict__ x,
+    typename OutType<OUT>::type* __restrict__ out, long long V, int K,
+    int Vx, int B, int R, int P, int C, bool aligned, double fill) {
+  using Acc = typename AccType<OUT>::type;
+  constexpr bool reads_w = PROG == SRC_PLUS_W || PROG == SRC_TIMES_W;
+  extern __shared__ __align__(16) int smem[];
+  int* ids_s[2] = {smem, smem + P};
+  float* ws_s[2] = {reinterpret_cast<float*>(smem + 2 * P),
+                    reinterpret_cast<float*>(smem + 3 * P)};
+  uint8_t* const mask0 = reinterpret_cast<uint8_t*>(smem + 4 * P);
+  uint8_t* mask_s[3] = {mask0, mask0 + P, mask0 + 2 * P};
+  const Acc fill_acc = to_acc<OUT>(fill);
+
+  if (K == 0) {                       // no slots: every row is the fill
+    const long long total = V * B;
+    for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+         i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
+      out[i] = store_value<OUT>(fill_acc);
+    }
+    return;
+  }
+
+  const long long tiles = (V + R - 1) / R;
+  const long long stride = gridDim.x;
+  long long t = blockIdx.x;           // the block's tile j
+  if (t >= tiles) return;
+  Tile cur = make_tile(V, K, R, t, P);
+  Tile nxt = make_tile(V, K, R, t + stride, P);
+  issue_mask(mask, cur.s0, cur.n, aligned, mask_s[0]);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  issue_ids<reads_w>(nbr, w, cur.s0, cur.n, aligned, mask_s[0], ids_s[0],
+                     ws_s[0]);
+  if (t + stride < tiles) {
+    issue_mask(mask, nxt.s0, nxt.n, aligned, mask_s[1]);
+  }
+  cp_async_commit();
+  for (int j = 0;; ++j, t += stride) {
+    // tile j's ids and tile j + 1's mask are in; every thread is done
+    // with tile j - 1's buffers
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + stride < tiles) {
+      issue_ids<reads_w>(nbr, w, nxt.s0, nxt.n, aligned,
+                         mask_s[(j + 1) % 3], ids_s[(j + 1) & 1],
+                         ws_s[(j + 1) & 1]);
+    }
+    if (t + 2 * stride < tiles) {
+      const Tile after = make_tile(V, K, R, t + 2 * stride, P);
+      issue_mask(mask, after.s0, after.n, aligned, mask_s[(j + 2) % 3]);
+    }
+    cp_async_commit();
+    for (int c0 = 0; c0 < B; c0 += C) {
+      walk_short_rows<TIn, PROG, OP, OUT>(
+          x, out, B, c0, min(C, B - c0), K, Vx, cur.row0, cur.rows,
+          mask_s[j % 3], ids_s[j & 1], ws_s[j & 1], fill_acc);
+    }
+    if (t + stride >= tiles) break;
+    cur = nxt;
+    nxt = make_tile(V, K, R, t + 2 * stride, P);
+  }
+  cp_async_wait_all();
+}
+
+// Rows longer than kShortRow: pieces of P slots, step 1 into shared
+// memory (kGroups groups a thread, two dependent loads a piece), step 2
+// the gathers into shared memory, step 3 the combine.
+template <typename TIn, int PROG, int OP, int OUT>
+__global__ void __launch_bounds__(kThreads, kLongBlocks)
+    superstep_batched_long_kernel(
+    const int* __restrict__ nbr, const uint8_t* __restrict__ mask,
+    const float* __restrict__ w, const TIn* __restrict__ x,
+    typename OutType<OUT>::type* __restrict__ out, long long V, int K,
+    int Vx, int B, int R, int P, int C, bool vec, bool aligned,
+    double fill) {
+  using Acc = typename AccType<OUT>::type;
+  constexpr bool reads_w = PROG == SRC_PLUS_W || PROG == SRC_TIMES_W;
+  constexpr int kGroups = kMaxPieceBatched / 4 / kThreads;
+  extern __shared__ __align__(16) int smem[];
+  int* ids_s = smem;
+  float* ws_s = reinterpret_cast<float*>(smem + P);
+  int* vals = smem + 2 * P;
+  int* carry = vals + P * C;
+  const Acc fill_acc = to_acc<OUT>(fill);
+
+  if (K == 0) {                       // no slots: every row is the fill
+    const long long total = V * B;
+    for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+         i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
+      out[i] = store_value<OUT>(fill_acc);
+    }
+    return;
+  }
+
+  const long long tiles = (V + R - 1) / R;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile tile = make_tile(V, K, R, t, P);
+    for (int c0 = 0; c0 < B; c0 += C) {
+      const int cw = min(C, B - c0);
+      for (int p = 0; p < tile.pieces; ++p) {
+        const long long off = static_cast<long long>(p) * P;
+        const int count = static_cast<int>(
+            min(static_cast<long long>(P), tile.n - off));
+        // a tile of one piece keeps its ids for every pass of columns
+        if (c0 == 0 || tile.pieces > 1) {
+          load_piece_slots<kGroups, reads_w>(nbr, mask, w, tile.s0 + off,
+                                             count, Vx, aligned, ids_s,
+                                             ws_s);
+        }
+        __syncthreads();
+        if (vec) {
+          gather_piece<4, TIn, PROG, OUT>(x, B, c0, cw, count, ids_s, ws_s,
+                                          vals);
+        } else {
+          gather_piece<1, TIn, PROG, OUT>(x, B, c0, cw, count, ids_s, ws_s,
+                                          vals);
+        }
+        __syncthreads();
+        if (vec) {
+          combine_piece<4, OP, OUT>(ids_s, vals, carry, out, B, c0, cw, K,
+                                    tile, off, count, fill_acc);
+        } else {
+          combine_piece<1, OP, OUT>(ids_s, vals, carry, out, B, c0, cw, K,
+                                    tile, off, count, fill_acc);
+        }
+        __syncthreads();              // shared memory free for the next
+      }
+    }
+  }
+}
+
+
+// Blocks resident on the card for one kernel at one size of shared
+// memory, found once per kernel and device and cached as
+// (smem << 32) | blocks (benign races: every writer stores a true pair);
+// the first call also opts the kernel into the whole shared memory.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int smem, std::atomic<bool>* opted,
+                            std::atomic<long long>* cache, long long* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
+  if (!opted[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted[dev].store(true, std::memory_order_relaxed);
+  }
+  long long known = cache[dev].load(std::memory_order_relaxed);
+  if ((known >> 32) != smem) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        kThreads, smem);
     if (err != cudaSuccess) return err;
-    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+    known = (static_cast<long long>(smem) << 32) |
+            (sms * (per_sm > 0 ? per_sm : 1));
+    cache[dev].store(known, std::memory_order_relaxed);
   }
-  const long long rows_per_block = kThreads / 32;
-  const long long work = (a.V + rows_per_block - 1) / rows_per_block;
-  const long long blocks = work < resident[dev] ? work : resident[dev];
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
-      static_cast<const int*>(a.nbr), static_cast<const uint8_t*>(a.mask),
-      static_cast<const float*>(a.w), static_cast<const TIn*>(a.x),
-      static_cast<typename OutType<OUT>::type*>(a.out), a.V, a.K, a.Vx, a.B,
-      a.fill);
+  *blocks = known & 0xFFFFFFFFLL;
+  return cudaSuccess;
+}
+
+template <typename TIn, int PROG, int OP, int OUT, bool kShort>
+cudaError_t launch_batched(const BatchedArgs& a) {
+  static std::atomic<bool> opted[64];
+  static std::atomic<long long> cache[64];
+  long long resident = 0;
+  cudaError_t err;
+  if constexpr (kShort) {
+    err = resident_blocks(superstep_batched_short_kernel<TIn, PROG, OP, OUT>,
+                          a.smem, opted, cache, &resident);
+  } else {
+    err = resident_blocks(superstep_batched_long_kernel<TIn, PROG, OP, OUT>,
+                          a.smem, opted, cache, &resident);
+  }
+  if (err != cudaSuccess) return err;
+  const long long work =
+      a.K == 0 ? (a.V * a.B + kThreads - 1) / kThreads
+               : (a.V + a.R - 1) / a.R;
+  const unsigned blocks =
+      static_cast<unsigned>(work < resident ? work : resident);
+  const auto nbr = static_cast<const int*>(a.nbr);
+  const auto mask = static_cast<const uint8_t*>(a.mask);
+  const auto w = static_cast<const float*>(a.w);
+  const auto x = static_cast<const TIn*>(a.x);
+  const auto out = static_cast<typename OutType<OUT>::type*>(a.out);
+  if constexpr (kShort) {
+    superstep_batched_short_kernel<TIn, PROG, OP, OUT>
+        <<<blocks, kThreads, a.smem, a.stream>>>(
+            nbr, mask, w, x, out, a.V, a.K, a.Vx, a.B, a.R, a.P, a.C,
+            a.aligned, a.fill);
+  } else {
+    superstep_batched_long_kernel<TIn, PROG, OP, OUT>
+        <<<blocks, kThreads, a.smem, a.stream>>>(
+            nbr, mask, w, x, out, a.V, a.K, a.Vx, a.B, a.R, a.P, a.C, a.vec,
+            a.aligned, a.fill);
+  }
   return cudaGetLastError();
+}
+
+template <typename TIn, int PROG, int OP, int OUT>
+cudaError_t launch_batched_path(const BatchedArgs& a) {
+  return a.shrt ? launch_batched<TIn, PROG, OP, OUT, true>(a)
+                : launch_batched<TIn, PROG, OP, OUT, false>(a);
 }
 
 template <typename TIn, int PROG, int OP>
@@ -566,11 +1153,13 @@ cudaError_t batched_by_out(int out_type, const BatchedArgs& a) {
   constexpr bool int_msg = PROG == SRC && std::is_same<TIn, int>::value;
   switch (out_type) {
     case I32:
-      if constexpr (int_msg) return launch_batched<TIn, PROG, OP, I32>(a);
+      if constexpr (int_msg) {
+        return launch_batched_path<TIn, PROG, OP, I32>(a);
+      }
       return cudaErrorInvalidValue;
-    case F32: return launch_batched<TIn, PROG, OP, F32>(a);
-    case BF16: return launch_batched<TIn, PROG, OP, BF16>(a);
-    case F16: return launch_batched<TIn, PROG, OP, F16>(a);
+    case F32: return launch_batched_path<TIn, PROG, OP, F32>(a);
+    case BF16: return launch_batched_path<TIn, PROG, OP, BF16>(a);
+    case F16: return launch_batched_path<TIn, PROG, OP, F16>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -599,27 +1188,74 @@ cudaError_t batched_by_prog(int program, int op, int out_type,
 
 }  // namespace
 
+#if SUPERSTEP_HAS(2)
+cudaError_t superstep_parts::batched_int32(int program, int op, int out_type,
+                                           const BatchedArgs& a) {
+  return batched_by_prog<int>(program, op, out_type, a);
+}
+#endif
+
+#if SUPERSTEP_HAS(3)
+cudaError_t superstep_parts::batched_float32(int program, int op,
+                                             int out_type,
+                                             const BatchedArgs& a) {
+  return batched_by_prog<float>(program, op, out_type, a);
+}
+#endif
+
+#if SUPERSTEP_HAS(2)
 // C entry point of the batched superstep (bound with ctypes): x is
-// [Vx, B] row-major, out [V, B].  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for what this file does not compile.
+// [Vx, B] row-major, out [V, B].  rows_per_tile, piece_slots, cols, vec
+// and smem_bytes are the launch geometry (ops.py:_batched_geometry): R,
+// P, C, 16-byte column loads and stores or not, and the block's dynamic
+// shared memory, which must be this file's count for P and C.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
+// this file does not compile or a geometry it does not take.
 extern "C" int pregel_superstep_batched(
     const void* nbr, const void* mask, const void* w, const void* x,
     void* out, long long V, long long K, long long Vx, long long B,
     int state_type, int program, int op, int out_type, double fill,
+    int rows_per_tile, int piece_slots, int cols, int vec, int smem_bytes,
     void* stream) {
   if (V <= 0 || B == 0) return 0;
+  // rows in registers: short rows of 4-column groups on aligned x and out
+  const bool shrt = K <= kShortRow && vec;
   if (K < 0 || K > INT_MAX || Vx < 1 || Vx > INT_MAX || B < 1 ||
-      B > INT_MAX) {
+      B > INT_MAX || piece_slots < 4 || piece_slots % 4 != 0 ||
+      piece_slots > (shrt ? kMaxShortPiece : kMaxPieceBatched) ||
+      cols < 1 || cols > B || rows_per_tile < 1 ||
+      ((rows_per_tile > 1 || shrt) &&
+       static_cast<long long>(rows_per_tile) * K > piece_slots) ||
+      smem_bytes > kMaxSmem ||
+      batched_smem_bytes(piece_slots, cols, shrt) != smem_bytes) {
     return cudaErrorInvalidValue;
   }
+  // 16-byte column loads and stores need four columns a group, every row
+  // of x and out on a 16-byte boundary
+  if (vec && (B % 4 != 0 || cols % 4 != 0 ||
+              reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  // 4-slot groups load as one vector when the arrays allow it
+  const bool aligned = reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(nbr) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const BatchedArgs a{nbr, mask, w, x, out, V, static_cast<int>(K),
-                      static_cast<int>(Vx), static_cast<int>(B), fill,
+                      static_cast<int>(Vx), static_cast<int>(B),
+                      rows_per_tile, piece_slots, cols, vec != 0, aligned,
+                      shrt, smem_bytes, fill,
                       static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (state_type) {
-    case I32: err = batched_by_prog<int>(program, op, out_type, a); break;
-    case F32: err = batched_by_prog<float>(program, op, out_type, a); break;
+    case I32:
+      err = superstep_parts::batched_int32(program, op, out_type, a);
+      break;
+    case F32:
+      err = superstep_parts::batched_float32(program, op, out_type, a);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
+#endif  // SUPERSTEP_HAS(2)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -92,7 +93,11 @@ def library():
     """The built kernel library (compiled on first call)."""
     global _LIB
     if _LIB is None:
-        lib = _build.load("pregel_superstep", sorted(CSRC.glob("*.cu")))
+        # the source's three parts (1-D entry, batched on int32 and on
+        # float32 state) compile at once
+        lib = _build.load("pregel_superstep", sorted(CSRC.glob("*.cu")),
+                          parts=[(f"-DSUPERSTEP_PART={p}",)
+                                 for p in (1, 2, 3)])
         fn = lib.pregel_superstep
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
@@ -101,23 +106,72 @@ def library():
         fb = lib.pregel_superstep_batched
         fb.restype = ctypes.c_int
         fb.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int] * 4
-                       + [ctypes.c_double, ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_double]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         _LIB = lib
     return _LIB
 
 
 #: slots a block takes at once (``kPiece`` in the CUDA source)
 PIECE_SLOTS = 2048
+#: values (slots x columns) a block of the batched entry holds at once
+#: for rows longer than ``SHORT_ROW``
+BATCHED_VALUES = 8192
+#: columns the batched entry takes in one pass over a tile
+BATCHED_COLS = 1024
+#: K at most for which the batched entry keeps a row's values in
+#: registers (``kShortRow``); such a tile holds at most ``SHORT_PIECE``
+#: slots (``kMaxShortPiece``)
+SHORT_ROW = 64
+SHORT_PIECE = 3072
+#: threads a block (``kThreads``)
+THREADS = 256
+#: shared memory a block may have on the H100 (``kMaxSmem``)
+MAX_SMEM_BYTES = 232448
 
 
-def _rows_per_tile(k: int) -> int:
-    """R, the rows a block owns: as many as fit one piece of 2048 slots,
-    a multiple of 4 from 4 up (so every tile starts on a 4-slot group);
-    a row longer than a piece is a tile of its own, walked piece by
-    piece."""
-    r = max(1, PIECE_SLOTS // max(k, 1))
+def _rows_per_tile(k: int, piece: int = PIECE_SLOTS) -> int:
+    """R, the rows a block owns: as many as fit one piece of ``piece``
+    slots, a multiple of 4 from 4 up (so every tile starts on a 4-slot
+    group); a row longer than a piece is a tile of its own, walked piece
+    by piece."""
+    r = max(1, piece // max(k, 1))
     return r - r % 4 if r >= 4 else r
+
+
+class BatchedGeometry(NamedTuple):
+    """The launch of ``pregel_superstep_batched``, in the order its C
+    entry point takes it."""
+    rows: int        # R, rows a tile
+    piece: int       # P, slots a piece (a multiple of 4)
+    cols: int        # C, columns a pass
+    vec: bool        # 16-byte loads of 4 columns, else 4-byte ones
+    smem: int        # dynamic shared memory a block, bytes
+
+
+def _batched_geometry(b: int, k: int, aligned: bool) -> BatchedGeometry:
+    """The batched entry's launch for ``b`` columns and ``k`` slots a row;
+    ``aligned``: x and out start on 16-byte boundaries.  The columns go
+    in passes of up to ``BATCHED_COLS``, in groups of 4 (``vec``) or 1.
+    Rows of at most ``SHORT_ROW`` slots in groups of 4: a tile holds a
+    row for each column group of a block's threads (at most
+    ``SHORT_PIECE`` slots), shared memory two tiles' ids and weights and
+    three tiles' mask bytes (19 bytes a slot).  Longer rows, and single
+    columns: a piece holds ``BATCHED_VALUES`` values (slots x columns of
+    a pass, at most 2048 slots), shared memory its ids, weights and
+    values and a long row's carried partials.  The CUDA source counts
+    the same (``batched_smem_bytes``) and refuses any other count."""
+    cols = min(b, BATCHED_COLS)
+    vec = aligned and b % 4 == 0
+    if k <= SHORT_ROW and vec:
+        groups = cols // 4
+        rows = _rows_per_tile(k, min(max(THREADS // groups, 1) * max(k, 1),
+                                     SHORT_PIECE))
+        piece = max(4, -(-rows * k // 4) * 4)
+        return BatchedGeometry(rows, piece, cols, vec, 19 * piece)
+    piece = min(PIECE_SLOTS, max(4, BATCHED_VALUES // cols // 4 * 4))
+    smem = 4 * (2 * piece + piece * cols + cols)
+    return BatchedGeometry(_rows_per_tile(k, piece), piece, cols, vec, smem)
 
 
 def kernel_out_dtype(x: torch.Tensor, message, message_dtype=None):
@@ -196,11 +250,14 @@ def fused_superstep(nbr, mask, w, x, *, message, op: str, identity,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if batched:
+            geo = _batched_geometry(
+                x.shape[1], K,
+                x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
             rc = lib.pregel_superstep_batched(
                 nbr.data_ptr(), mask.data_ptr(), w.data_ptr(), x.data_ptr(),
                 out.data_ptr(), V, K, x.shape[0], x.shape[1],
                 _DTYPES[x.dtype], EDGE_PROGRAMS[program], _OPS[op],
-                _DTYPES[out_dtype], fill, stream)
+                _DTYPES[out_dtype], fill, *geo, stream)
         else:
             rc = lib.pregel_superstep(
                 nbr.data_ptr(), mask.data_ptr(), w.data_ptr(), x.data_ptr(),

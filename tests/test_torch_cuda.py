@@ -196,21 +196,23 @@ def test_kernel_float_sum_repeats_its_bytes():
 
 # ------------------------------------------- pregel_superstep, [Vx, B] state
 
-@pytest.mark.parametrize("b", [1, 3, 16, 33])
-@pytest.mark.parametrize("k", [0, 1, 19, 40, 3000])
-@pytest.mark.parametrize("off", [0, 3])
-@pytest.mark.parametrize("msg,x_kind,op,md,ident", LAYOUT_COMBOS)
-def test_batched_kernel_matches_plain(b, k, off, msg, x_kind, op, md,
-                                      ident):
-    """The batched entry (state [Vx, B], a batched lift of the edge
-    program, w shared by the columns) on every layout case: min/max and
-    int32 sums bit-equal to the plain version, float sums within rtol
-    1e-5; B past one warp's 32 lanes included."""
+def _misaligned(x):
+    """A contiguous copy of ``x`` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _check_batched(b, k, off, msg, x_kind, op, md, ident, misaligned):
     from repro_torch.core.pregel import Lifted
     v = 37 if k >= 1000 else 301
     nbr, mask, w, vx = _layout(v, k, seed=k * 7 + off + b, off=off)
     x = torch.stack([_state_x(x_kind, vx, seed=k + off + 11 * c)
                      for c in range(b)], dim=1).contiguous()
+    if misaligned:
+        x = _misaligned(x)
     kw = dict(message=Lifted(msg, (-1, None)), op=op, identity=ident,
               message_dtype=md)
     before = (ops.KERNEL_LAUNCHES, ops.BATCHED_LAUNCHES)
@@ -234,6 +236,30 @@ def test_batched_kernel_matches_plain(b, k, off, msg, x_kind, op, md,
         else:
             assert torch.equal(got[:, c].contiguous().view(torch.uint8),
                                one.view(torch.uint8))
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 16, 33, 64])
+@pytest.mark.parametrize("k", [0, 1, 19, 40, 3000])
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("msg,x_kind,op,md,ident", LAYOUT_COMBOS)
+def test_batched_kernel_matches_plain(b, k, off, msg, x_kind, op, md,
+                                      ident):
+    """The batched entry (state [Vx, B], a batched lift of the edge
+    program, w shared by the columns) on every layout case: min/max and
+    int32 sums bit-equal to the plain version, float sums within rtol
+    1e-5; widths of 4-column groups (16-byte loads) and not, past 32
+    columns included."""
+    _check_batched(b, k, off, msg, x_kind, op, md, ident, misaligned=False)
+
+
+@pytest.mark.parametrize("b", [4, 8, 16])
+@pytest.mark.parametrize("k", [1, 19, 3000])
+@pytest.mark.parametrize("msg,x_kind,op,md,ident", LAYOUT_COMBOS)
+def test_batched_kernel_matches_plain_on_misaligned_state(b, k, msg, x_kind,
+                                                          op, md, ident):
+    """State whose rows start 4 bytes off 16-byte alignment (a contiguous
+    view at an odd offset): the entry's 4-byte loads, the same answers."""
+    _check_batched(b, k, 3, msg, x_kind, op, md, ident, misaligned=True)
 
 
 def test_batched_kernel_rejects_what_it_does_not_take():

@@ -223,6 +223,124 @@ def test_compiled_programs_and_lane_groups():
         torch.bfloat16
 
 
+# ------------------------------------- the batched entry's launch geometry
+
+def _batched_walk(v, k, b, geo):
+    """How many times the batched kernel (``superstep.cu``'s
+    ``superstep_batched_kernel``) reads each slot in each pass of columns
+    and writes each (row, column), walking tiles of R rows, pieces of P
+    slots and passes of C columns in groups of 4 (vector) or 1."""
+    reads = np.zeros((-(-b // geo.cols), v * k), dtype=np.int64)
+    writes = np.zeros((v, b), dtype=np.int64)
+    vw = 4 if geo.vec else 1
+    if k == 0:                          # every (row, column) the fill
+        writes += 1
+        return reads, writes
+    for t in range(-(-v // geo.rows)):
+        row0 = t * geo.rows
+        rows = min(geo.rows, v - row0)
+        n = rows * k
+        assert rows == 1 or n <= geo.piece
+        for c, c0 in enumerate(range(0, b, geo.cols)):
+            cw = min(geo.cols, b - c0)
+            assert cw % vw == 0
+            for off in range(0, n, geo.piece):
+                count = min(geo.piece, n - off)
+                reads[c, row0 * k + off: row0 * k + off + count] += 1
+                for r in range(rows):
+                    rs, re = r * k - off, r * k - off + k
+                    if max(rs, 0) < min(re, count) and re <= count:
+                        writes[row0 + r, c0: c0 + cw] += 1
+    return reads, writes
+
+
+def test_batched_geometry_fits_shared_memory():
+    """Every B from 1 to 1024 (and past it) and K from 0 to 3000: the
+    block's dynamic shared memory within the H100's 232,448 bytes, and
+    equal to the CUDA source's count (rows of at most ``SHORT_ROW``
+    slots in 4-column groups: two tiles' ids and weights, three tiles'
+    mask bytes; otherwise ids, weights, P x C values and C carried
+    partials)."""
+    every_k = {1, 3, 4, 8, 16, 33, 64, 1024}      # the rest: a few K each
+    for b in list(range(1, 1025)) + [1025, 4096, 100000]:
+        for aligned in (True, False):
+            for k in (range(0, 3001) if b in every_k
+                      else (0, 1, 2, 5, 19, 64, 65, 128, 2049, 3000)):
+                g = ops._batched_geometry(b, k, aligned)
+                short = k <= ops.SHORT_ROW and g.vec
+                assert g.smem <= ops.MAX_SMEM_BYTES == 232448
+                assert g.smem == (19 * g.piece if short else 4 * (
+                    2 * g.piece + g.piece * g.cols + g.cols))
+                assert g.piece % 4 == 0 and 4 <= g.piece <= (
+                    ops.SHORT_PIECE if short else ops.PIECE_SLOTS)
+                assert short or g.piece * g.cols <= ops.BATCHED_VALUES
+                assert 1 <= g.cols <= min(b, ops.BATCHED_COLS)
+                assert g.rows >= 1 and (g.rows < 4 or g.rows % 4 == 0)
+                # a short-row tile is one piece; a longer row may be a
+                # tile of its own, walked piece by piece
+                assert g.rows * k <= g.piece or (g.rows == 1 and not short)
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 16, 33, 64, 1024, 1030, 2052])
+def test_batched_geometry_covers_every_slot_and_column(b):
+    """Pieces cover every slot of every row exactly once in each pass of
+    columns; column groups cover every column; each (row, column) is
+    written exactly once; V not a multiple of the rows a tile owns."""
+    for k in (0, 1, 2, 3, 4, 5, 7, 19, 20, 37, 128, 129, 1000, 2047, 2048,
+              2049, 3000):
+        for aligned in (True, False):
+            geo = ops._batched_geometry(b, k, aligned)
+            v = 2 * geo.rows + 3 if geo.rows * k <= 4096 else 3
+            if b > 64:
+                v = 3
+            reads, writes = _batched_walk(v, k, b, geo)
+            assert (reads == 1).all(), (b, k, geo)
+            assert (writes == 1).all(), (b, k, geo)
+
+
+def test_batched_geometry_vector_path_only_where_it_may_run():
+    """16-byte column loads and stores only for 4-column groups on
+    16-byte aligned x and out; every other width and a misaligned view
+    take 4-byte loads."""
+    for b in range(1, 300):
+        assert ops._batched_geometry(b, 19, True).vec == (b % 4 == 0)
+        assert not ops._batched_geometry(b, 19, False).vec
+    # the main path's fused batch: 128 rows of 19 slots, two 4-column
+    # groups each, in the C entry point's argument order
+    assert tuple(ops._batched_geometry(8, 19, True)) == \
+        (128, 2432, 8, True, 46208)
+    # rows past SHORT_ROW: 1024-slot pieces of 8 columns' values
+    assert tuple(ops._batched_geometry(8, 65, True)) == \
+        (12, 1024, 8, True, 40992)
+
+
+def test_source_builds_in_parts_that_cover_both_entries():
+    """The library compiles ``superstep.cu`` as three parts at once: the
+    1-D entry in part 1, the batched entry in part 2 with its int32
+    kernels, its float32 kernels in part 3; a change of parts is a new
+    library (the build's hash covers them)."""
+    from repro_torch.kernels import _build
+    src = (ops.CSRC / "superstep.cu").read_text()
+    assert "#define SUPERSTEP_HAS(part) (SUPERSTEP_PART == 0 || " \
+        "SUPERSTEP_PART == (part))" in src
+    entry_1d = src.index('extern "C" int pregel_superstep(')
+    entry_b = src.index('extern "C" int pregel_superstep_batched(')
+    assert src.rindex("#if SUPERSTEP_HAS(1)", 0, entry_1d) > \
+        src.rindex("#endif", 0, entry_1d)
+    assert src.rindex("#if SUPERSTEP_HAS(2)", 0, entry_b) > \
+        src.rindex("#endif", 0, entry_b)
+    for part, state in ((2, "int"), (3, "float")):
+        body = src.index(f"return batched_by_prog<{state}>(")
+        assert src.rindex(f"#if SUPERSTEP_HAS({part})", 0, body) > \
+            src.rindex("#endif", 0, body)
+    sources = [ops.CSRC / "superstep.cu"]
+    parts = [(f"-DSUPERSTEP_PART={p}",) for p in (1, 2, 3)]
+    assert _build._digest(sources, parts) == _build._digest(sources, parts)
+    assert _build._digest(sources, parts) != _build._digest(sources)
+    assert _build._digest(sources, parts[:2]) != \
+        _build._digest(sources, parts)
+
+
 def test_cuda_source_has_every_program_and_dtype():
     """The CUDA source declares the programs, ops and dtypes the wrapper
     indexes (both sides hard-code the numbering)."""
@@ -232,4 +350,15 @@ def test_cuda_source_has_every_program_and_dtype():
     assert ("enum Prog { SRC = 0, SRC_PLUS_ONE = 1, SRC_PLUS_W = 2, "
             "SRC_TIMES_W = 3 };") in src
     assert 'extern "C" int pregel_superstep(' in src
+    assert 'extern "C" int pregel_superstep_batched(' in src
     assert "src/repro/kernels/pregel_superstep/kernel.py:43" in src
+    # the batched entry's shared memory count and limits, as
+    # _batched_geometry's
+    assert "return shrt ? 19LL * P" in src
+    assert ": 4 * (2LL * P + static_cast<long long>(P) * C + C);" in src
+    for name, value in (("kMaxSmem", ops.MAX_SMEM_BYTES),
+                        ("kShortRow", ops.SHORT_ROW),
+                        ("kMaxShortPiece", ops.SHORT_PIECE),
+                        ("kMaxPieceBatched", ops.PIECE_SLOTS),
+                        ("kThreads", ops.THREADS)):
+        assert f"constexpr int {name} = {value};" in src, name
