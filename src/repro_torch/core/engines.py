@@ -41,6 +41,7 @@ from repro_torch.core.pregel import (
     MeshAxes,
     PregelSpec,
     SuperstepVariant,
+    Timeline,
     run_pregel,
     run_pregel_frontier,
     run_pregel_fused,
@@ -118,6 +119,9 @@ class Engine:
         # here (under _exec_lock) and ``run_superstep`` appends one
         # counter dict per pregel execution it performs.
         self._profile_sink: Optional[list] = None
+        # ... and a Timeline, which the loops and the start state's build
+        # report to (``meta['timeline']``); None when not profiling
+        self._timeline: Optional[Timeline] = None
         # Realized superstep variants of the current run(), in order:
         # what ran after any precondition fallback (meta
         # ['realized_variant'] reports the last).
@@ -304,12 +308,13 @@ class Engine:
             else:
                 v = "dense"
         sink = self._profile_sink
+        tl = self._timeline
         if v == "fused" and self.superstep_supported(spec, "fused"):
             V = self.coo.n_vertices
             ell = self.superstep_ell("in")
             state, iters = run_pregel_fused(
                 spec, ell, init_state[:V], max_iters,
-                use_kernels=self.use_kernels)
+                use_kernels=self.use_kernels, timeline=tl)
             self._ran("fused")
             if sink is not None:
                 sink.append(self._superstep_profile(
@@ -327,7 +332,7 @@ class Engine:
                     init_active=active)
             state, iters, occ = run_pregel_frontier(
                 spec, ell, init_state[:V], max_iters,
-                init_active=active, profile=True)
+                init_active=active, profile=True, timeline=tl)
             n = int(iters)
             occupancy = [int(c) for c in occ[:n].tolist()]
             # slots counted in the reference's 1024-row frontier blocks,
@@ -343,7 +348,7 @@ class Engine:
             sink.append(prof)
             return state, iters
         state, iters = run_pregel(spec, self.sharded, init_state,
-                                  max_iters, mesh=self.mesh)
+                                  max_iters, mesh=self.mesh, timeline=tl)
         self._ran("dense")
         if sink is not None:
             sink.append(self._superstep_profile(
@@ -466,7 +471,13 @@ class Engine:
 
         ``profile=True`` collects superstep counters from any pregel
         loop the execution runs and attaches the last (outermost)
-        one as ``meta['superstep']``.
+        one as ``meta['superstep']``, and the execution's
+        :class:`~repro_torch.core.pregel.Timeline` as
+        ``meta['timeline']``: the start state's host seconds, the
+        loops' host syncs and, on a CUDA device, their span on the
+        device in milliseconds (a callable that waits for it); the
+        regions show as ``gas.init``, ``gas.loop`` and ``gas.sync``
+        ranges on a ``torch.profiler`` trace.
         """
         defn = R.get(algorithm) if isinstance(algorithm, str) else algorithm
         if self.name not in defn.engines:
@@ -482,11 +493,13 @@ class Engine:
         count_fast = False
         sink = None
         realized = None
+        timeline = None
         with self._exec_lock, self._device_scope():
             self.n_runs += 1
             self._realized = []
             if profile:
                 self._profile_sink = []
+                self._timeline = Timeline()
             try:
                 # the fault-injection seam: per attempt, so the service's
                 # retry loop re-triggers an installed policy on every try
@@ -516,6 +529,7 @@ class Engine:
                 realized, self._realized = self._realized, None
                 if profile:
                     sink, self._profile_sink = self._profile_sink, None
+                    timeline, self._timeline = self._timeline, None
         if not count_fast:
             if count_only and defn.count is not None:
                 value = defn.count(value)
@@ -529,6 +543,9 @@ class Engine:
             meta["realized_variant"] = realized[-1]
         if sink:
             meta["superstep"] = sink[-1]
+        timeline = timeline.as_dict() if timeline is not None else None
+        if timeline:
+            meta["timeline"] = timeline
         return QueryResult(value, self.name, iters, meta)
 
     def run_batch(self, algorithm, params_list,
@@ -562,11 +579,13 @@ class Engine:
             G.require_symmetric(self.coo, defn.name)
         sink = None
         realized = None
+        timeline = None
         with self._exec_lock, self._device_scope():
             self.n_runs += 1
             self._realized = []
             if profile:
                 self._profile_sink = []
+                self._timeline = Timeline()
             try:
                 R.apply_fault(defn.name)  # one fused execution, one fault
                 values, iters, fused_meta = defn.batch_runner(self, ps)
@@ -574,6 +593,8 @@ class Engine:
                 realized, self._realized = self._realized, None
                 if profile:
                     sink, self._profile_sink = self._profile_sink, None
+                    timeline, self._timeline = self._timeline, None
+        timeline = timeline.as_dict() if timeline is not None else None
         if len(values) != len(ps):
             raise ValueError(
                 f"{defn.name}: batch runner returned {len(values)} values "
@@ -592,6 +613,8 @@ class Engine:
                 # every member's result (stripped, like 'fused', from
                 # cached re-serves)
                 meta["superstep"] = sink[-1]
+            if timeline:
+                meta["timeline"] = timeline
             out.append(QueryResult(value, self.name, iters, meta))
         return out
 
@@ -613,15 +636,16 @@ class Engine:
 
     def _invoke(self, runner, defn: R.AlgorithmDef, params: dict):
         if isinstance(runner, SuperstepVariant):
-            state, max_iters = defn.init(self, params)
+            state, max_iters = self._init_state(defn, params)
             state, iters = self.run_superstep(runner.spec, state,
                                               max_iters,
                                               variant=runner.mode)
             return state[: self.coo.n_vertices], int(iters)
         if isinstance(runner, PregelSpec):
-            state, max_iters = defn.init(self, params)
+            state, max_iters = self._init_state(defn, params)
             state, iters = run_pregel(runner, self.sharded, state,
-                                      max_iters, mesh=self.mesh)
+                                      max_iters, mesh=self.mesh,
+                                      timeline=self._timeline)
             self._ran("dense")
             if self._profile_sink is not None:
                 self._profile_sink.append(self._superstep_profile(
@@ -630,6 +654,14 @@ class Engine:
             return state[: self.coo.n_vertices], int(iters)
         value, iters = runner(self, **params)
         return value, (int(iters) if iters is not None else None)
+
+    def _init_state(self, defn: R.AlgorithmDef, params: dict):
+        """The vertex program's start state and loop bound, built under
+        ``gas.init`` in a profiled run."""
+        if self._timeline is None:
+            return defn.init(self, params)
+        with self._timeline.init():
+            return defn.init(self, params)
 
     # -- registry-backed method dispatch ------------------------------------
     def __getattr__(self, name: str):

@@ -39,12 +39,35 @@ system runs its interactive tiers against:
   fault-injection hook and the runtime's transfer ledger emit events
   through it.  With no observers installed, ``emit`` is one falsy check
   — the off path stays free.
+* **Regions on the device's timeline** — :meth:`Tracer.region` marks a
+  region of the service's work as the profiler range ``gas.<name>``
+  (:data:`REGION_PREFIX`) and times it on the tracer's clock, so the
+  spans share a ``torch.profiler`` trace's clock and every idle gap of
+  the device is put down to the region the host was in.  The service
+  marks ``gas.submit`` ⊃ ``gas.plan``, ``gas.admit`` (the submit,
+  plan and admission spans, timed where the work happens),
+  ``gas.execute`` (one unit, cache lookup to bookkeeping) and
+  ``gas.finish`` (result cache and history); the engine marks
+  ``gas.init`` (the start state built and put on the device),
+  ``gas.loop`` (the superstep loop) and one ``gas.sync`` a host read of
+  a device value inside it (:class:`repro_torch.core.pregel.Timeline`).
+  The start state's host seconds (``init_wall_s``), the count of host
+  syncs (``host_syncs``) and the loop's span on the device, the
+  milliseconds between a CUDA event at its entry and one at its exit
+  (``loop_span_ms``), ride on the execute span as its ``timeline``
+  attribute; a reading the device reports late is taken when the trace
+  is next read (:meth:`Tracer.settle`), never inside the loop.
+  ``explain`` leaves the timeline out: the profiler's trace is where it
+  is read.
 
 This module is deliberately pure stdlib (no torch, no sibling imports),
-so every core layer can import it without cycles.
+so every core layer can import it without cycles: the service hands the
+tracer its annotation factory (``pregel.profiler_range``, a
+``torch.profiler.record_function`` range while a profiler records).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -59,8 +82,11 @@ __all__ = [
     "Span", "TicketTrace", "Tracer", "PlanAccuracyMeter",
     "render_trace", "render_prometheus", "parse_prometheus",
     "validate_chrome_trace", "install_observer", "uninstall_observer",
-    "emit",
+    "emit", "Region", "REGION_PREFIX",
 ]
+
+# the prefix of the profiler ranges the service and the engine mark
+REGION_PREFIX = "gas."
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +163,17 @@ class TicketTrace:
         return self.root.find_all(name)
 
 
+class Region:
+    """One pass through a traced region: its host interval (``t0``,
+    ``t1``) on the tracer's clock; ``t1`` is ``None`` while it runs."""
+
+    __slots__ = ("t0", "t1")
+
+    def __init__(self, t0: float):
+        self.t0 = t0
+        self.t1: Optional[float] = None
+
+
 # ---------------------------------------------------------------------------
 # Tracer
 # ---------------------------------------------------------------------------
@@ -165,12 +202,19 @@ class Tracer:
             raise ValueError("trace_depth must be >= 1")
         self.trace_depth = int(trace_depth)
         self.clock = clock
+        # the profiler's range factory (name -> context manager), set by
+        # the service to ``pregel.profiler_range``: :meth:`region` enters
+        # one ``gas.<name>`` range a region; None times them on the clock
+        self.annotate = None
         self._lock = threading.RLock()
         self._traces: OrderedDict[int, TicketTrace] = OrderedDict()
         self._next_span = 0
         self.counters = {"tickets": 0, "spans": 0, "evicted": 0,
                          "events": 0}
         self.events: deque = deque(maxlen=self.trace_depth * 4)
+        # execute spans' timelines holding a reading the device reports
+        # late (a callable), oldest first; bounded like the traces
+        self._unsettled: deque = deque(maxlen=self.trace_depth)
 
     # -- internals ----------------------------------------------------------
     def _sid(self) -> int:
@@ -182,12 +226,44 @@ class Tracer:
         return Span(self._sid(), name, t0, attrs=dict(attrs))
 
     def trace(self, ticket_id: int) -> Optional[TicketTrace]:
+        self.settle()
         with self._lock:
             return self._traces.get(ticket_id)
 
     def traces(self) -> list:
+        self.settle()
         with self._lock:
             return list(self._traces.values())
+
+    @contextlib.contextmanager
+    def region(self, name: str):
+        """Mark a region of the service's work: the profiler range
+        ``gas.<name>`` around the block (where :attr:`annotate` is set)
+        and the block's host interval on this tracer's clock, the
+        yielded :class:`Region`."""
+        reg = Region(self.clock())
+        mark = (contextlib.nullcontext() if self.annotate is None
+                else self.annotate(REGION_PREFIX + name))
+        with mark:
+            try:
+                yield reg
+            finally:
+                reg.t1 = self.clock()
+
+    def settle(self) -> None:
+        """Take the readings the device reports late: each callable in
+        an execute span's ``timeline`` (the superstep loop's span on the
+        device, between two CUDA events) is called and its value put in
+        its place.  Reading waits for the device to pass the
+        events, so it happens here, when a trace is read, and never
+        while the work runs."""
+        with self._lock:
+            pending = list(self._unsettled)
+            self._unsettled.clear()
+        for timeline in pending:
+            for key, value in list(timeline.items()):
+                if callable(value):
+                    timeline[key] = value()
 
     def counters_snapshot(self) -> dict:
         with self._lock:
@@ -196,13 +272,18 @@ class Tracer:
 
     # -- lifecycle hooks (called by the service) ----------------------------
     def on_submit(self, ticket, t_submit: float, *,
-                  admission: dict, plan_attrs: dict,
+                  admission: dict, plan_attrs: dict, planned: tuple,
                   candidates: tuple = (),
                   original_placement: Optional[dict] = None) -> None:
         """Open a ticket's trace: root + submit(admission, plan) spans,
-        then the queue-wait span.  ``original_placement`` records the
-        pre-spill plan when the submit path re-placed the ticket."""
+        then the queue-wait span.  The submit span runs from
+        ``t_submit`` to now (the ticket queued); ``planned`` is the
+        ``(start, end)`` of planning, the plan span's interval, and
+        admission runs from its end to now.  ``original_placement``
+        records the pre-spill plan when the submit path re-placed the
+        ticket."""
         now = self.clock()
+        t_plan, t_admit = planned
         with self._lock:
             root = self._span("ticket", t_submit,
                               ticket_id=ticket.ticket_id,
@@ -211,12 +292,12 @@ class Tracer:
                               tier=ticket.tier, est_s=ticket.est_s)
             submit = root.child(self._sid(), "submit", t_submit)
             submit.t1 = now
-            adm = submit.child(self._sid(), "admission", t_submit,
+            adm = submit.child(self._sid(), "admission", t_admit,
                                **admission)
             adm.t1 = now
-            plan = submit.child(self._sid(), "plan", t_submit,
+            plan = submit.child(self._sid(), "plan", t_plan,
                                 **plan_attrs)
-            plan.t1 = now
+            plan.t1 = t_admit
             plan.attrs["candidates"] = [
                 dataclasses.asdict(c) if dataclasses.is_dataclass(c)
                 else dict(c) for c in candidates]
@@ -311,6 +392,9 @@ class Tracer:
                 return
             execute.attrs["engine"] = engine
             execute.attrs.update(attrs)
+            timeline = execute.attrs.get("timeline")
+            if timeline and any(callable(v) for v in timeline.values()):
+                self._unsettled.append(timeline)
             if per_ticket:
                 for child in execute.children:
                     tid = child.attrs.get("ticket_id")
@@ -376,9 +460,7 @@ class Tracer:
         (same ``args.span_id``) so each ticket's timeline is complete
         on its own."""
         events = []
-        with self._lock:
-            traces = list(self._traces.values())
-        for tr in traces:
+        for tr in self.traces():
             for s in tr.root.walk():
                 t1 = s.t1 if s.t1 is not None else s.t0
                 events.append({
@@ -506,7 +588,8 @@ def _candidate_lines(plan_span: Span) -> list:
 def _span_lines(span: Span, depth: int) -> list:
     pad = "  " * depth
     head = f"{pad}{span.name} [{_ms(span.duration_s)}]"
-    skip = {"candidates", "error_chain", "group", "span_id"}
+    # the timeline is the profiler's to show (Tracer.region)
+    skip = {"candidates", "error_chain", "group", "span_id", "timeline"}
     attrs = {k: v for k, v in span.attrs.items() if k not in skip}
     if attrs:
         head += "  " + " ".join(

@@ -26,16 +26,25 @@ path (``run_pregel``, the correctness oracle), the fused ELL kernel
 (``run_pregel_fused``, the hand-written CUDA kernel on the card) and the
 packed frontier (``run_pregel_frontier``).  They return bit-identical
 states for min/max monoids and integer-valued sums.
+
+A profiled execution hands each loop a :class:`Timeline`: the loop runs
+as a ``gas.loop`` range on the profiler's timeline and each host read of
+a device value in it as a ``gas.sync`` range, counted; without one the
+loops do nothing more.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import time
 from typing import Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
+from repro_torch.core.obs import REGION_PREFIX
 from repro_torch.core.partition import ShardedCOO
 from repro_torch.kernels.pregel_superstep import ops as superstep_ops
 from repro_torch.kernels.pregel_superstep.ref import as_dtype, superstep_plain
@@ -306,23 +315,124 @@ def _local_combine(msgs, index, v_local, op, identity):
     return out[:v_local]
 
 
-def _superstep_loop(one_iter, state, max_iters, halt):
+_NO_RANGE = contextlib.nullcontext()
+
+
+def profiler_range(name: str):
+    """The ``torch.profiler`` range ``name`` while a profiler records on
+    this thread, else nothing: a range entered with none recording shows
+    nowhere and costs tens of microseconds a region on the card's host
+    (torch's data pipes gate their ranges the same way)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_RANGE
+
+
+class Timeline:
+    """Where one profiled execution spends its time, region by region
+    on the profiler's timeline: the start state built and put on the
+    device (``gas.init``), each superstep loop (``gas.loop``) and each
+    host read of a device value inside one (``gas.sync``).  It sums the
+    start state's host seconds, counts the reads (``host_syncs``) and,
+    on a CUDA device, records an event at each loop's entry and exit.
+    The events are read only by :meth:`span_ms`, after the work: no
+    sync is added inside a loop."""
+
+    def __init__(self):
+        self.init_wall_s = 0.0
+        self.host_syncs = 0
+        self.inits = 0
+        self.loops = 0
+        self._events: list = []
+
+    @contextlib.contextmanager
+    def init(self):
+        t0 = time.perf_counter()
+        try:
+            with profiler_range(REGION_PREFIX + "init"):
+                yield
+        finally:
+            self.init_wall_s += time.perf_counter() - t0
+            self.inits += 1
+
+    @contextlib.contextmanager
+    def loop(self, device):
+        events = None
+        if torch.device(device).type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        with profiler_range(REGION_PREFIX + "loop"):
+            if events is not None:
+                events[0].record()
+            yield
+            if events is not None:
+                events[1].record()
+                self._events.append(events)
+        self.loops += 1
+
+    def read(self, flag) -> bool:
+        """``bool(flag)``, a device value read on the host: counted."""
+        self.host_syncs += 1
+        with profiler_range(REGION_PREFIX + "sync"):
+            return bool(flag)
+
+    def nonzero(self, mask) -> torch.Tensor:
+        """``torch.nonzero(mask)``, whose length the host reads:
+        counted."""
+        self.host_syncs += 1
+        with profiler_range(REGION_PREFIX + "sync"):
+            return torch.nonzero(mask)
+
+    def span_ms(self) -> float:
+        """The loops' spans on the device's clock, in milliseconds, each
+        from its entry event to its exit event: the launch gaps and the
+        host syncs between are inside.  Waits for the last event."""
+        total = 0.0
+        for start, end in self._events:
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total
+
+    def as_dict(self) -> dict:
+        """What was recorded: ``init_wall_s`` where a start state was
+        built, ``host_syncs`` where a loop ran, and ``loop_span_ms`` where
+        it ran on a CUDA device, as :meth:`span_ms` (a callable: reading
+        it waits for the device).  Empty where nothing ran."""
+        out: dict = {}
+        if self.inits:
+            out["init_wall_s"] = self.init_wall_s
+        if self.loops:
+            out["host_syncs"] = self.host_syncs
+        if self._events:
+            out["loop_span_ms"] = self.span_ms
+        return out
+
+
+def _loop_region(timeline: Optional[Timeline], device):
+    return contextlib.nullcontext() if timeline is None \
+        else timeline.loop(device)
+
+
+def _superstep_loop(one_iter, state, max_iters, halt, timeline=None):
     """Run ``one_iter`` to the halt or ``max_iters``: the reference's
     ``while i < max_iters and not done`` with the halt read on the host
-    (one synchronisation per superstep).  Returns ``(state, iters)``."""
-    if halt is None:
-        for _ in range(max_iters):
-            state = one_iter(state)
-        return state, int(max_iters)
-    i = 0
-    while i < max_iters:
-        new = one_iter(state)
-        i += 1
-        done = bool(halt(state, new))
-        state = new
-        if done:
-            break
-    return state, i
+    (one synchronisation per superstep, counted by ``timeline``).
+    Returns ``(state, iters)``."""
+    with _loop_region(timeline, state.device):
+        if halt is None:
+            for _ in range(max_iters):
+                state = one_iter(state)
+            return state, int(max_iters)
+        i = 0
+        while i < max_iters:
+            new = one_iter(state)
+            i += 1
+            flag = halt(state, new)
+            done = bool(flag) if timeline is None else timeline.read(flag)
+            state = new
+            if done:
+                break
+        return state, i
 
 
 def _gval(spec, state, agg, ids, valid):
@@ -453,6 +563,7 @@ def run_pregel(
     mesh=None,
     axis_data: str = "data",
     axis_model: str = "model",
+    timeline: Optional[Timeline] = None,
 ):
     """Run the vertex program to convergence (or ``max_iters``).
 
@@ -475,13 +586,13 @@ def run_pregel(
         if sg.vertex_layout == "sharded":
             raise ValueError("run_pregel: a vertex-sharded layout needs a "
                              "mesh")
-        return _run_dense(spec, sg, init_state, max_iters, None)
+        return _run_dense(spec, sg, init_state, max_iters, None, timeline)
     ax = MeshAxes(mesh, axis_data, axis_model)
     return _run_dense(spec, _local_shard(sg, ax, init_state.device),
-                      init_state, max_iters, ax)
+                      init_state, max_iters, ax, timeline)
 
 
-def _run_dense(spec, sg, init_state, max_iters, ax):
+def _run_dense(spec, sg, init_state, max_iters, ax, timeline):
     V = sg.n_vertices
     v_local = sg.v_local
     sharded = sg.vertex_layout == "sharded"
@@ -555,11 +666,12 @@ def _run_dense(spec, sg, init_state, max_iters, ax):
             not_conv = _all_reduce(not_conv, "sum", ax.data_group)
             if sharded:
                 not_conv = _all_reduce(not_conv, "sum", ax.model_group)
-            return int(not_conv.item()) == 0
+            return not_conv[0] == 0
 
     if by_column:
         init_state = init_state.t().contiguous().t()
-    state, iters = _superstep_loop(one_iter, init_state, max_iters, halt)
+    state, iters = _superstep_loop(one_iter, init_state, max_iters, halt,
+                                   timeline)
     if sharded:
         state = _all_gather(state, ax.model_group, ax.n_model)
     return (state.contiguous() if by_column else state), iters
@@ -584,6 +696,7 @@ def run_pregel_fused(
     init_state: torch.Tensor,
     max_iters: int,
     use_kernels: bool = True,
+    timeline: Optional[Timeline] = None,
 ):
     """Run the vertex program with the fused-superstep kernel.
 
@@ -620,7 +733,7 @@ def run_pregel_fused(
 
     halt = None if spec.halt is None else \
         (lambda old, new: spec.halt(old, new, valid))
-    return _superstep_loop(one_iter, init_state, max_iters, halt)
+    return _superstep_loop(one_iter, init_state, max_iters, halt, timeline)
 
 
 def _reduce_active(ch):
@@ -636,6 +749,7 @@ def run_pregel_frontier(
     max_iters: int,
     init_active: Optional[torch.Tensor] = None,
     profile: bool = False,
+    timeline: Optional[Timeline] = None,
 ):
     """Run the vertex program with frontier compression.
 
@@ -671,6 +785,8 @@ def run_pregel_frontier(
     ``profile=True`` additionally returns a ``[max_iters] int32`` tensor
     (on the host) of per-round frontier occupancy (untaken rounds stay
     0) as a third output; it records values the loop computes anyway.
+    ``timeline`` counts the host syncs: one pack before the loop, then a
+    pack and (with a halt) a halt read a superstep.
     """
     _check_superstep_spec(spec, "run_pregel_frontier")
     mode = spec.frontier_mode
@@ -739,27 +855,34 @@ def run_pregel_frontier(
         act0 = _reduce_active(
             init_state != torch.tensor(spec.identity,
                                        dtype=init_state.dtype, device=dev))
-    frontier = torch.nonzero(act0).flatten()
+    pack = torch.nonzero if timeline is None else timeline.nonzero
     occupancy = []
     state, prev = init_state, init_state
     acc = torch.zeros(agg_shape, dtype=agg_dtype, device=dev) if delta \
         else None
     i = 0
-    while i < max_iters:
-        occupancy.append(int(frontier.shape[0]))
-        if delta:
-            acc = scatter_frontier(acc, state, prev, frontier, i == 0)
-        else:
-            acc = scatter_frontier(
-                torch.full(agg_shape, fill, dtype=agg_dtype, device=dev),
-                state, None, frontier, False)
-        new = one_superstep(state, acc[:V])
-        frontier = torch.nonzero(_reduce_active(new != state)).flatten()
-        done = spec.halt is not None and bool(spec.halt(state, new, valid))
-        i += 1
-        prev, state = state, new
-        if done:
-            break
+    with _loop_region(timeline, dev):
+        frontier = pack(act0).flatten()
+        while i < max_iters:
+            occupancy.append(int(frontier.shape[0]))
+            if delta:
+                acc = scatter_frontier(acc, state, prev, frontier, i == 0)
+            else:
+                acc = scatter_frontier(
+                    torch.full(agg_shape, fill, dtype=agg_dtype,
+                               device=dev),
+                    state, None, frontier, False)
+            new = one_superstep(state, acc[:V])
+            frontier = pack(_reduce_active(new != state)).flatten()
+            done = False
+            if spec.halt is not None:
+                flag = spec.halt(state, new, valid)
+                done = bool(flag) if timeline is None \
+                    else timeline.read(flag)
+            i += 1
+            prev, state = state, new
+            if done:
+                break
     if profile:
         occ = torch.zeros(max_iters, dtype=torch.int32)
         occ[:len(occupancy)] = torch.tensor(occupancy, dtype=torch.int32)

@@ -90,6 +90,7 @@ facade over these primitives: its synchronous ``query`` is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -103,7 +104,7 @@ from repro_torch.core import pools as PL
 from repro_torch.core import registry as R
 from repro_torch.core import runtime as RT
 from repro_torch.core.engines import DistributedEngine, LocalEngine, QueryResult
-from repro_torch.core.pregel import MeshAxes
+from repro_torch.core.pregel import MeshAxes, profiler_range
 from repro_torch.device import resolve_device
 
 # re-exported so service users see one import surface for the typed
@@ -164,6 +165,15 @@ class QueryTicket:
     # warm-start seed (an ancestor snapshot's QueryResult) pinned at
     # submit for plans whose mode is not 'full'; None otherwise
     seed: Any = dataclasses.field(default=None, repr=False)
+    # the service's tracer while it traces (see ``trace``)
+    tracer: Any = dataclasses.field(default=None, repr=False,
+                                    compare=False)
+
+    def trace(self):
+        """The ticket's span tree (``obs.TicketTrace``) while the
+        service's tracer keeps it, else None."""
+        return None if self.tracer is None else \
+            self.tracer.trace(self.ticket_id)
 
 
 class GraphContext:
@@ -500,6 +510,9 @@ class _WorkUnit:
         return (id(self.tickets[0].context), self.pool, self.engine)
 
 
+# what a region is where the service does not trace
+_NO_REGION = contextlib.nullcontext()
+
 _THREADS_ON_A_MESH = (
     "drain(workers={n}) on a service with a device-mesh context: worker "
     "threads would issue the mesh's collectives in an order that differs "
@@ -612,12 +625,16 @@ class GraphAnalyticsService:
         # -- observability ---------------------------------------------
         # ``trace_depth > 0`` (or an explicit tracer) turns on span
         # tracing: per-ticket span trees bounded to the newest
-        # trace_depth tickets, superstep profiling on every traced
-        # execution, and process-wide fault/transfer events routed in
-        # through the observer seam.  Off (the default) every hook is a
-        # single ``is not None`` check.  The PlanAccuracyMeter is
-        # always on — recording two floats per execution is cheaper
-        # than the estimate it corrects.
+        # trace_depth tickets, superstep profiling and a timeline on
+        # every traced execution, the ``gas.*`` regions as
+        # ``torch.profiler`` ranges while a profiler records (the tracer
+        # gets ``profiler_range``),
+        # and process-wide fault/transfer events routed in through the
+        # observer seam.  Off (the default) every hook is a single
+        # ``is not None`` check: no range is entered, no CUDA event
+        # made, no sync added.  The PlanAccuracyMeter is always on —
+        # recording two floats per execution is cheaper than the
+        # estimate it corrects.
         if tracer is not None:
             self.tracer: Optional[obs.Tracer] = tracer
         elif trace_depth > 0:
@@ -625,6 +642,7 @@ class GraphAnalyticsService:
         else:
             self.tracer = None
         if self.tracer is not None:
+            self.tracer.annotate = profiler_range
             obs.install_observer(self.tracer)
         self._accuracy = obs.PlanAccuracyMeter()
         # the device mesh of the service's mesh contexts (one a service)
@@ -990,23 +1008,34 @@ class GraphAnalyticsService:
         (and tiered) on the incremental estimate.  Seeded tickets never
         fuse — the seed is per-snapshot state a shared batch program
         cannot carry.
+
+        Traced, the call is the region ``gas.submit``, planning (seed
+        lookup and plan) ``gas.plan`` and admission ``gas.admit``; the
+        ticket's submit, plan and admission spans take their intervals.
         """
-        ctx = self.context(graph_name, as_of)
-        seed, seed_mode = self._seed_for(ctx, q)
-        plan = ctx.plan(q, seed_mode=seed_mode)
-        if plan.mode == "full":
-            seed = None
-        est = P.plan_cost(plan)
-        with self._lock:
-            decision = self._admit(ctx, q, plan, est)
-            if ctx._axes is None:
-                return self._enqueue(ctx, graph_name, q, plan, seed,
-                                     decision)
-        # on a mesh every rank decides, and all take rank (0, 0)'s
-        # decision: the thresholds and queue depths it rests on may differ
-        decision = ctx._axes.broadcast_object(decision)
-        with self._lock:
-            return self._enqueue(ctx, graph_name, q, plan, seed, decision)
+        with self._region("submit") as submitting:
+            ctx = self.context(graph_name, as_of)
+            with self._region("plan") as planning:
+                seed, seed_mode = self._seed_for(ctx, q)
+                plan = ctx.plan(q, seed_mode=seed_mode)
+            if plan.mode == "full":
+                seed = None
+            marks = None if submitting is None else \
+                (submitting.t0, planning.t0, planning.t1)
+            with self._region("admit"):
+                est = P.plan_cost(plan)
+                with self._lock:
+                    decision = self._admit(ctx, q, plan, est)
+                    if ctx._axes is None:
+                        return self._enqueue(ctx, graph_name, q, plan, seed,
+                                             decision, marks)
+                # on a mesh every rank decides, and all take rank (0, 0)'s
+                # decision: the thresholds and queue depths it rests on
+                # may differ
+                decision = ctx._axes.broadcast_object(decision)
+                with self._lock:
+                    return self._enqueue(ctx, graph_name, q, plan, seed,
+                                         decision, marks)
 
     def _admit(self, ctx: GraphContext, q, plan: P.Plan, est: float):
         """Admission, tier, spill and backpressure for one planned query
@@ -1036,9 +1065,12 @@ class GraphAnalyticsService:
         return ("admitted", est, tier, plan, spill, None, None)
 
     def _enqueue(self, ctx: GraphContext, graph_name: str, q,
-                 planned: P.Plan, seed, decision) -> QueryTicket:
+                 planned: P.Plan, seed, decision,
+                 marks=None) -> QueryTicket:
         """Carry out ``_admit``'s decision (caller holds the lock): count
-        it, raise where it refused, else queue the ticket."""
+        it, raise where it refused, else queue the ticket.  ``marks``
+        (traced) are the clock readings at submit's entry and at
+        planning's start and end."""
         outcome, est, tier, plan, spill, depth, budget = decision
         if outcome == "rejected":
             self.stats["rejected"] += 1
@@ -1080,8 +1112,11 @@ class GraphAnalyticsService:
                             "engine": planned.engine,
                             "variant": planned.variant,
                             "est_s": planned.est_s}
+            t_submit, t_plan, t_planned = marks
+            ticket.tracer = self.tracer
             self.tracer.on_submit(
-                ticket, ticket.queued_at,
+                ticket, t_submit,
+                planned=(t_plan, t_planned),
                 admission={"est_s": est,
                            "budget_s": self.admission_budget_s,
                            "threshold_s": self.interactive_threshold_s,
@@ -1534,11 +1569,19 @@ class GraphAnalyticsService:
 
     def _execute_unit(self, unit: _WorkUnit, finished: list) -> None:
         """Run one dequeued unit to resolution (outside the lock; only
-        bookkeeping re-acquires it)."""
-        if unit.kind == "solo":
-            self._execute_solo(unit.tickets[0], finished)
-        else:
-            self._execute_group(unit.engine, unit.tickets, finished)
+        bookkeeping re-acquires it); traced, as the region
+        ``gas.execute``."""
+        with self._region("execute"):
+            if unit.kind == "solo":
+                self._execute_solo(unit.tickets[0], finished)
+            else:
+                self._execute_group(unit.engine, unit.tickets, finished)
+
+    def _region(self, name: str):
+        """The tracer's region ``gas.<name>`` where the service traces,
+        else nothing."""
+        return _NO_REGION if self.tracer is None else \
+            self.tracer.region(name)
 
     def _execute_solo(self, t: QueryTicket, finished: list) -> None:
         ctx = t.context
@@ -1571,7 +1614,8 @@ class GraphAnalyticsService:
                 [t.ticket_id], engine=r.engine,
                 attrs=self._result_attrs(r, wall))
         self._record_incremental(r, t.seed, ctx)
-        with self._lock:
+        # the result cache and the history: ``gas.finish``
+        with self._region("finish"), self._lock:
             self.stats["executed"] += 1
             # re-key: accounting may have materialized the pool
             self._cache_put(self._result_key(ctx, t.query),
@@ -1588,8 +1632,9 @@ class GraphAnalyticsService:
         for k in ("variant", "realized_variant", "mode"):
             if k in r.meta:
                 attrs[k] = r.meta[k]
-        if "superstep" in r.meta:
-            attrs["superstep"] = dict(r.meta["superstep"])
+        for k in ("superstep", "timeline"):
+            if k in r.meta:
+                attrs[k] = dict(r.meta[k])
         return attrs
 
     @staticmethod
@@ -1599,7 +1644,7 @@ class GraphAnalyticsService:
         THIS execution (superstep counters, realized variant, fusion
         shape) — a later cache hit replaying them would claim an
         execution that never happened for that caller."""
-        drop = {"superstep", "realized_variant", *also}
+        drop = {"superstep", "timeline", "realized_variant", *also}
         if not (drop & r.meta.keys()):
             return r
         return dataclasses.replace(
@@ -1660,7 +1705,7 @@ class GraphAnalyticsService:
                 per_ticket={t.ticket_id: {"est_s": t.est_s,
                                           "index": i}
                             for i, t in enumerate(run)})
-        with self._lock:
+        with self._region("finish"), self._lock:
             self.stats["executed"] += 1
             self.stats["fused_batches"] += 1
             self.stats["fused_tickets"] += len(run)

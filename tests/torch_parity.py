@@ -131,11 +131,12 @@ def approx(x, tol: float) -> Approx:
     return Approx(np.asarray(host(x), np.float64), tol)
 
 
-# keys the two packages do not share: host-clock readings, and the
-# port's own ``realized_variant`` (the superstep variant that ran)
+# keys the two packages do not share: host-clock readings, the port's
+# own ``realized_variant`` (the superstep variant that ran) and its own
+# ``timeline`` (host seconds, host syncs and device time of an execution)
 _UNSHARED_KEYS = frozenset({"wall_s", "t0", "t1", "duration_s", "wait_s",
                          "queued_at", "ts", "dur", "elapsed_s",
-                         "realized_variant"})
+                         "realized_variant", "timeline"})
 
 
 def norm(x):
