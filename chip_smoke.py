@@ -43,7 +43,9 @@ ids and phase 7's LPA and HITS graphs (beside phases 3-10).
               = 0 to 3000), masks with holes and rows off 16-byte
               alignment, and on the uncapped in-ELL layouts of the
               phase-3 and phase-4 graphs, the 2^24 one also under a
-              seeded permutation of its ids;
+              seeded permutation of its ids; its CSR entry (the dense
+              superstep) on the benchmark's graph500-s21 graph, BFS and
+              SSSP, against its plain version and the dense PyTorch path;
               ell_intersect on sorted row pairs (K = 1, 9, 31, 32, 33,
               ragged K, K = 3000, all-sentinel and identical rows) and on
               runs of one eu that cross warps and blocks; ell_spmv
@@ -77,12 +79,15 @@ ids and phase 7's LPA and HITS graphs (beside phases 3-10).
   3. engine   on the V = 2^20 identifier graph through ``LocalEngine.run``:
               CC, BFS (4 sources) and SSSP (each to 2048 supersteps) and
               k-core
-              (k = 4) with variant
-              dense, fused and frontier, and fused once more with
-              ``use_kernels=False`` (the plain version on the card):
-              byte-equal values, equal iteration counts, the fused runs
-              launch pregel_superstep once per superstep and no other run
-              launches it; triangle counting (intersect: ell_intersect,
+              (k = 4) with variant dense on the plain engine
+              (``use_kernels=False``: PyTorch ops, no kernel), which every
+              other run is held to, dense, fused and frontier, and fused
+              once more on the plain engine (the plain version on the
+              card): byte-equal values, equal iteration counts, the fused
+              runs launch pregel_superstep once per superstep and no other
+              run launches it, the dense run of CC, BFS and SSSP launches
+              the CSR entry once per superstep and no other run launches
+              it; triangle counting (intersect: ell_intersect,
               one launch) against scipy and k-core against its peeling
               oracle; on the V = 2^14 graph the bitset variant equals the
               intersect variant equals scipy.  Then (outside the path's
@@ -328,6 +333,12 @@ BITSET_LOG2V = 14          # bitset triangles: [E, V/32] words per edge
 MAIN_LOG2V = 24            # the main-path graph (dense path: over budget)
 KCORE_K = 4
 KCORE_K_COUNT = 8
+# algorithms whose dense supersteps go through pregel_superstep's CSR
+# entry on the card (min/max programs; k-core sums)
+CSR_ALGOS = ("connected_components", "bfs", "sssp")
+CSR_CONFIG = ROOT / "bench" / "configs" / "graph500-s21.json"
+CSR_SEED = 2147481101      # the graph500-s21 check's label permutation
+CSR_LAYOUT = "graph500-s21 CSR"
 BFS_HOPS = 64              # superstep bound of the phase-4 BFS/SSSP queries
 # superstep bounds of phase 3's BFS and SSSP (uncapped they run 14,528 and
 # 67,651 supersteps on the ring lattice, SSSP 141 s over its five runs);
@@ -808,6 +819,86 @@ def _holey(v, k, off, gen):
     return nbr, mask, w, x
 
 
+def check_csr_main(gen, results):
+    """pregel_superstep's CSR entry at the main path's shape, the
+    benchmark's graph500-s21 graph (Kronecker scale 21, edge factor 16,
+    symmetrized and weighted, as ``bench/run.py`` builds it; labels
+    permuted by CSR_SEED), through the layout the dense path reads
+    (``LocalEngine.sharded.csr_index()``): BFS (x + 1) and SSSP (x + w)
+    under min on float32 state with 40 % inf, bit-identical to the plain
+    version on the card (``csr_superstep_plain``) and to the dense
+    PyTorch path it replaces (gather, message, ``_local_combine``), and a
+    planted fault (one source's state lowered) must show.  Timed: the
+    kernel, the plain version and the PyTorch path, beside the byte
+    bound (each edge's 4-byte id and, for SSSP, its 4-byte weight, the
+    row offsets and the output once)."""
+    import torch
+    from bench.run import make_graph
+    from repro_torch.core import pregel
+    from repro_torch.core.engines import LocalEngine
+    from repro_torch.kernels.pregel_superstep import ops
+    from repro_torch.kernels.pregel_superstep.ref import csr_superstep_plain
+    cfg = json.loads(CSR_CONFIG.read_text())
+    t0 = time.perf_counter()
+    _, coo = make_graph(cfg, CSR_SEED, "cuda")
+    sg = LocalEngine(coo).sharded
+    lay = sg.csr_index()
+    torch.cuda.synchronize()
+    V = sg.n_vertices
+    nnz = int(lay.rowptr[-1])
+    log(f"graph500-s21: V={V}, {nnz} directed edges, {len(lay.tiles) - 1} "
+        f"tiles, built in {time.perf_counter() - t0:.1f} s")
+    src_idx = sg.gather_index("src", V)
+    seg = sg.combine_index()
+    x = torch.rand(V, generator=gen, device="cuda") * 10
+    x[torch.rand(V, generator=gen, device="cuda") < 0.4] = float("inf")
+    hub = int(torch.argmax(lay.rowptr.diff()))
+    for name, msg, reads_w in (("bfs", ops.msg_src_plus_one, False),
+                               ("sssp", ops.msg_src_plus_w, True)):
+        kw = dict(message=msg, op="min", identity=float("inf"))
+
+        def kernel(state=x):
+            return ops.csr_superstep(lay, sg.src, sg.w, state, **kw)
+
+        def plain():
+            return csr_superstep_plain(lay.rowptr, sg.src, sg.w, x, **kw)
+
+        def path():
+            return pregel._local_combine(msg(x.index_select(0, src_idx),
+                                             sg.w), seg, V, "min",
+                                         float("inf"))
+        got = kernel()
+        want, via_path = plain(), path()
+        torch.cuda.synchronize()
+        ok = bits_equal(got, want) and bits_equal(got, via_path)
+        # the fault: the hub's first source reads a state below every
+        # other, so the hub's row must change
+        bad = x.clone()
+        bad[sg.src[int(lay.rowptr[hub])].long()] = -1.0
+        fault_seen = not bits_equal(kernel(bad), want)
+        nbytes = nnz * (8 if reads_w else 4) + (V + 1) * 4 + V * 4
+        row = {"kernel": "pregel_superstep_csr", "layout": CSR_LAYOUT,
+               "combo": name, "V": V, "edges": nnz, "ok": bool(ok),
+               "fault_seen": fault_seen,
+               "max_abs_err": max(max_abs_err(got, want),
+                                  max_abs_err(got, via_path)),
+               "ms": cuda_ms(kernel),
+               "plain_ms": cuda_ms(plain, reps=3, calls=1),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "library_ms": cuda_ms(path, reps=3, calls=1),
+               "library": "the dense PyTorch path: index_select, message, "
+                          "scatter_reduce"}
+        results.append(row)
+        log("kernel " + json.dumps(row))
+        if not ok:
+            fail(f"the CSR entry disagrees with its plain version or the "
+                 f"PyTorch path: {row}")
+        if not fault_seen:
+            fail(f"the CSR check cannot see a lowered source state: {row}")
+    del sg, lay, src_idx, seg, coo, x
+
+
 def check_combine(label, nbr, mask, w, x, timed, results, path_out=None):
     """ell_spmv (the ell_combine kernel) vs ell_combine_plain for sum,
     min and max on one layout; ``path_out`` (op -> output) holds what a
@@ -1082,12 +1173,15 @@ def _ops_modules() -> dict:
 
 
 def launch_counts() -> dict:
-    """Launches per kernel; ``pregel_superstep`` counts both of its
-    entries, ``pregel_superstep_batched`` the [Vx, B] entry alone."""
+    """Launches per kernel; ``pregel_superstep`` counts both of its ELL
+    entries, ``pregel_superstep_batched`` the [Vx, B] entry alone,
+    ``pregel_superstep_csr`` the dense superstep's CSR entry (in neither
+    of the other two)."""
     mods = _ops_modules()
     counts = {n: m.KERNEL_LAUNCHES for n, m in mods.items()}
     counts["pregel_superstep_batched"] = \
         mods["pregel_superstep"].BATCHED_LAUNCHES
+    counts["pregel_superstep_csr"] = mods["pregel_superstep"].CSR_LAUNCHES
     return counts
 
 
@@ -1095,6 +1189,7 @@ def reset_counts() -> None:
     for m in _ops_modules().values():
         m.KERNEL_LAUNCHES = 0
     _ops_modules()["pregel_superstep"].BATCHED_LAUNCHES = 0
+    _ops_modules()["pregel_superstep"].CSR_LAUNCHES = 0
 
 
 def launched_since(before: dict) -> dict:
@@ -1142,7 +1237,10 @@ def engine_phase(coo, coo_small):
                                    "max_iters": PHASE3_SSSP_ITERS}),
                          ("k_core", {"k": KCORE_K})):
         base = None
-        for label, e, variant in (("dense", eng, "dense"),
+        # the plain engine's dense run (PyTorch ops, no kernel) is what
+        # every other run is held to
+        for label, e, variant in (("dense_plain", plain, "dense"),
+                                  ("dense", eng, "dense"),
                                   ("fused", eng, "fused"),
                                   ("frontier", eng, "frontier"),
                                   ("fused_plain", plain, "fused")):
@@ -1154,6 +1252,7 @@ def engine_phase(coo, coo_small):
             wall = time.perf_counter() - t0
             launched = launched_since(before)
             n_step = launched["pregel_superstep"]
+            n_csr = launched["pregel_superstep_csr"]
             realized = r.meta["realized_variant"]
             row = {"algo": algo, "variant": label, "realized": realized,
                    "iterations": r.iterations, "wall_ms": wall * 1e3,
@@ -1169,13 +1268,20 @@ def engine_phase(coo, coo_small):
                          f"times in {r.iterations} supersteps")
             elif n_step:
                 fail(f"{algo}: {label} launched the fused kernel")
+            # the dense variant of a min/max program goes through the CSR
+            # entry once a superstep; nothing else launches it
+            want_csr = r.iterations if label == "dense" \
+                and algo in CSR_ALGOS else 0
+            if n_csr != want_csr:
+                fail(f"{algo}: {label} launched the CSR entry {n_csr} times "
+                     f"in {r.iterations} supersteps (want {want_csr})")
             if launched["ell_intersect"] or launched["ell_combine"]:
                 fail(f"{algo}: {label} launched another kernel: {launched}")
             val = r.value.contiguous().view(torch.uint8)
             if base is None:
                 base = (val, r.iterations, r.value)
             elif not torch.equal(val, base[0]) or r.iterations != base[1]:
-                fail(f"{algo}: {label} differs from dense")
+                fail(f"{algo}: {label} differs from the plain dense run")
         if algo == "k_core":
             want = TT.k_core_reference(*_host_edges(coo), V, KCORE_K)
             if not (base[2].cpu().numpy() == want).all():
@@ -5009,6 +5115,9 @@ def main() -> int:
         else:
             del ell
     torch.cuda.empty_cache()
+    # the dense superstep's CSR entry at the benchmark's graph500-s21
+    check_csr_main(gen, checks)
+    torch.cuda.empty_cache()
 
     # phase 5's OrientedELL of the permuted ids and phase 7's graphs,
     # built on the host beside phases 3-10
@@ -5135,9 +5244,9 @@ def main() -> int:
     log(f"service: phase 13 took {service_row['phase_s']:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 13 done")
     must = {f"LocalEngine.run V=2^{PHASE3_LOG2V} and 2^{BITSET_LOG2V}":
-                ("pregel_superstep", "ell_intersect"),
-            FORCED_BATCH_PATH: ("pregel_superstep_batched",),
+                ("pregel_superstep", "pregel_superstep_csr", "ell_intersect"),
             f"GraphPlatform.query V=2^{MAIN_LOG2V}": ("ell_intersect",),
+            FORCED_BATCH_PATH: ("pregel_superstep_batched",),
             f"LocalEngine._spmv V=2^{MAIN_LOG2V}": ("ell_combine",),
             SERVE_PATH: ("flash_attention",),
             LM_MESH_NCCL_PATH: ("flash_attention",),
@@ -5179,6 +5288,10 @@ def main() -> int:
         return next(r for r in checks
                     if r.get("kernel") == "pregel_superstep_batched"
                     and r["layout"] == layout and r["combo"] == "bfs")
+    def csr(combo):
+        return next(r for r in checks if r.get("kernel") ==
+                    "pregel_superstep_csr" and r["combo"] == combo)
+    csr_sssp, csr_bfs = csr("sssp"), csr("bfs")
     bat = batched(f"in-ELL 2^{MAIN_LOG2V}")
     bat_perm = batched(f"in-ELL 2^{MAIN_LOG2V} permuted ids")
     bat20 = batched(f"in-ELL 2^{PHASE3_LOG2V}")
@@ -5218,6 +5331,19 @@ def main() -> int:
          f"at_2^{PHASE3_LOG2V}_x{bat20['B']}": {k: bat20[k] for k in numbers},
          "shape": f"BFS (float32, x+1, min) over [V, {bat['B']}] state on "
                   f"the V=2^{MAIN_LOG2V} in-ELL, K={bat['K']}"},
+        {"name": "pregel_superstep_csr", "route": "cuda",
+         "source": "src/repro_torch/kernels/pregel_superstep/csrc/"
+                   "superstep.cu",
+         "replaces": None,
+         "launches": sum(by_path("pregel_superstep_csr").values()),
+         "launches_by_path": by_path("pregel_superstep_csr"),
+         "max_abs_err": errs("pregel_superstep_csr"),
+         **{k: csr_sssp[k] for k in numbers},
+         "library": csr_sssp["library"],
+         "bfs": {k: csr_bfs[k] for k in numbers},
+         "shape": f"SSSP (float32, x+w, min) over the dense superstep's "
+                  f"CSR of graph500-s21, V={csr_sssp['V']}, "
+                  f"{csr_sssp['edges']} edges"},
         {"name": "ell_intersect", "route": "cuda",
          "source": "src/repro_torch/kernels/ell_intersect/csrc/"
                    "intersect.cu",

@@ -77,8 +77,10 @@ class Engine:
     same graph and keeps only its own edge shard on its device.
     ``use_kernels=True`` (the default) runs the fused superstep variant
     through the hand-written kernel's wrapper — the CUDA kernel on the
-    card, its plain version on the CPU; ``False`` forces the plain
-    PyTorch version everywhere, for parity runs."""
+    card, its plain version on the CPU — and, on the card, the dense
+    variant's min/max supersteps through the kernel's CSR entry
+    (``pregel.csr_engages``); ``False`` forces the plain PyTorch version
+    everywhere, for parity runs."""
 
     name = "engine"
 
@@ -278,15 +280,18 @@ class Engine:
         """Single dispatch point for superstep execution strategies.
 
         ``'dense'``/``None`` is the gather/segment-combine path
-        (``run_pregel`` — the correctness oracle).  ``'fused'`` runs the
+        (``run_pregel`` — the correctness oracle with ``use_kernels=False``;
+        on the card with ``True`` a min/max program runs it through the
+        kernel's CSR entry).  ``'fused'`` runs the
         ELL-blocked fused kernel, ``'frontier'`` the packed active-list
         loop; both fall back to dense when ``superstep_supported`` says
         no, so a planner-forced variant never errors on the reference's
         preconditions and the variants contract (identical results
         everywhere) holds unconditionally.  On the card the fused
-        variant launches the CUDA kernel (``use_kernels=True``) or runs
-        the plain version on request (``False``); it never substitutes
-        one for the other.
+        and dense variants launch the CUDA kernel (``use_kernels=True``,
+        dense where ``pregel.csr_engages`` allows) or run the plain
+        version on request (``False``); they never substitute one for
+        the other.
         ``'auto'`` prefers frontier, then fused, then dense.
 
         ``init_active`` (optional ``bool [V]``) seeds the frontier
@@ -348,7 +353,8 @@ class Engine:
             sink.append(prof)
             return state, iters
         state, iters = run_pregel(spec, self.sharded, init_state,
-                                  max_iters, mesh=self.mesh, timeline=tl)
+                                  max_iters, mesh=self.mesh, timeline=tl,
+                                  use_kernels=self.use_kernels)
         self._ran("dense")
         if sink is not None:
             sink.append(self._superstep_profile(
@@ -645,7 +651,8 @@ class Engine:
             state, max_iters = self._init_state(defn, params)
             state, iters = run_pregel(runner, self.sharded, state,
                                       max_iters, mesh=self.mesh,
-                                      timeline=self._timeline)
+                                      timeline=self._timeline,
+                                      use_kernels=self.use_kernels)
             self._ran("dense")
             if self._profile_sink is not None:
                 self._profile_sink.append(self._superstep_profile(

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import GraphCOO, round_up
+from repro_torch.kernels.pregel_superstep import ops as superstep_ops
 
 
 @dataclasses.dataclass
@@ -117,6 +118,16 @@ class ShardedCOO:
                               ).clamp(0, vl).long()
             self._index_cache["combine"] = got
         return got
+
+    def csr_index(self):
+        """The edges read as a CSR over their destinations, for the dense
+        superstep's kernel entry (``superstep_ops.csr_layout``: the row
+        offsets and the tile table), or None where the destinations are
+        not sorted (edge shards side by side)."""
+        if "csr" not in self._index_cache:
+            self._index_cache["csr"] = superstep_ops.csr_layout(
+                self.dst, self.n_vertices)
+        return self._index_cache["csr"]
 
 
 def _pack_shards(groups, e_shard, sentinel):

@@ -25,7 +25,12 @@ Three strategies execute a superstep: the dense gather/segment-combine
 path (``run_pregel``, the correctness oracle), the fused ELL kernel
 (``run_pregel_fused``, the hand-written CUDA kernel on the card) and the
 packed frontier (``run_pregel_frontier``).  They return bit-identical
-states for min/max monoids and integer-valued sums.
+states for min/max monoids and integer-valued sums.  On the card the
+dense path runs a min/max program's superstep through the kernel's CSR
+entry where ``csr_engages`` says it may, in one pass over the
+destination-sorted edges, unless the caller asks for the plain version
+(``use_kernels=False``, the oracle of parity runs); every other case
+keeps the PyTorch ops.
 
 A profiled execution hands each loop a :class:`Timeline`: the loop runs
 as a ``gas.loop`` range on the profiler's timeline and each host read of
@@ -336,11 +341,13 @@ class Timeline:
     start state's host seconds, counts the reads (``host_syncs``) and,
     on a CUDA device, records an event at each loop's entry and exit.
     The events are read only by :meth:`span_ms`, after the work: no
-    sync is added inside a loop."""
+    sync is added inside a loop.  ``kernel_supersteps`` counts the dense
+    supersteps that ran through the kernel's CSR entry."""
 
     def __init__(self):
         self.init_wall_s = 0.0
         self.host_syncs = 0
+        self.kernel_supersteps = 0
         self.inits = 0
         self.loops = 0
         self._events: list = []
@@ -395,14 +402,16 @@ class Timeline:
 
     def as_dict(self) -> dict:
         """What was recorded: ``init_wall_s`` where a start state was
-        built, ``host_syncs`` where a loop ran, and ``loop_span_ms`` where
-        it ran on a CUDA device, as :meth:`span_ms` (a callable: reading
-        it waits for the device).  Empty where nothing ran."""
+        built, ``host_syncs`` and ``kernel_supersteps`` where a loop ran,
+        and ``loop_span_ms`` where it ran on a CUDA device, as
+        :meth:`span_ms` (a callable: reading it waits for the device).
+        Empty where nothing ran."""
         out: dict = {}
         if self.inits:
             out["init_wall_s"] = self.init_wall_s
         if self.loops:
             out["host_syncs"] = self.host_syncs
+            out["kernel_supersteps"] = self.kernel_supersteps
         if self._events:
             out["loop_span_ms"] = self.span_ms
         return out
@@ -564,6 +573,7 @@ def run_pregel(
     axis_data: str = "data",
     axis_model: str = "model",
     timeline: Optional[Timeline] = None,
+    use_kernels: bool = True,
 ):
     """Run the vertex program to convergence (or ``max_iters``).
 
@@ -580,19 +590,41 @@ def run_pregel(
     larger than a 1-D layout's one shard replicates the program.  State
     ``[V, B]`` under a ``batched_spec`` program is gathered and combined
     one column at a time; apply and halt see all of it.
+    ``use_kernels=True`` runs a superstep through the kernel's CSR entry
+    where ``csr_engages`` allows it; ``False`` keeps the PyTorch ops
+    everywhere (parity runs).
     """
     check_precision(spec)
     if mesh is None:
         if sg.vertex_layout == "sharded":
             raise ValueError("run_pregel: a vertex-sharded layout needs a "
                              "mesh")
-        return _run_dense(spec, sg, init_state, max_iters, None, timeline)
+        return _run_dense(spec, sg, init_state, max_iters, None, timeline,
+                          use_kernels)
     ax = MeshAxes(mesh, axis_data, axis_model)
     return _run_dense(spec, _local_shard(sg, ax, init_state.device),
-                      init_state, max_iters, ax, timeline)
+                      init_state, max_iters, ax, timeline, use_kernels)
 
 
-def _run_dense(spec, sg, init_state, max_iters, ax, timeline):
+def csr_engages(spec: PregelSpec, state, ax) -> bool:
+    """Whether a dense superstep of ``spec`` over ``state`` (one column of
+    a ``batched_spec`` program's) may run through the kernel's CSR entry
+    (``superstep_ops.csr_superstep``): 1-D int32 or float32 state on a
+    CUDA device, a min or max combine of one of the compiled edge
+    programs on the source's state alone, at full precision, with no
+    mesh.  The layout must also read as a CSR (``ShardedCOO.csr_index``).
+    Every other case keeps the PyTorch ops: sums, grouped monoids,
+    two-endpoint programs, reduced-precision channels, meshes, the CPU."""
+    message = spec.message.base if isinstance(spec.message, Lifted) \
+        else spec.message
+    return (ax is None and state.device.type == "cuda" and state.dim() == 1
+            and state.dtype in (torch.int32, torch.float32)
+            and spec.combine in ("min", "max")
+            and not spec.needs_dst_state and spec.message_dtype is None
+            and superstep_ops.compiled(message))
+
+
+def _run_dense(spec, sg, init_state, max_iters, ax, timeline, use_kernels):
     V = sg.n_vertices
     v_local = sg.v_local
     sharded = sg.vertex_layout == "sharded"
@@ -606,14 +638,21 @@ def _run_dense(spec, sg, init_state, max_iters, ax, timeline):
         init_state = init_state[start:start + v_local]
     ids = start + torch.arange(v_local, dtype=torch.int32, device=dev)
     valid = ids < V
-    src_idx = sg.gather_index("src", n_state)
-    dst_idx = sg.gather_index("dst", n_state) if spec.needs_dst_state \
-        else None
-    seg = sg.combine_index()
     freeze = start + v_local > V
     by_column = isinstance(spec.message, Lifted) and init_state.dim() == 2
+    csr = sg.csr_index() if use_kernels and csr_engages(
+        spec, init_state[:, 0] if by_column else init_state, ax) else None
+    if csr is None:
+        src_idx = sg.gather_index("src", n_state)
+        dst_idx = sg.gather_index("dst", n_state) \
+            if spec.needs_dst_state else None
+        seg = sg.combine_index()
 
     def messages(message, state):
+        if csr is not None:
+            return superstep_ops.csr_superstep(
+                csr, sg.src, sg.w, state, message=message, op=spec.combine,
+                identity=spec.identity)
         src_state = state.index_select(0, src_idx)
         if spec.needs_dst_state:
             msgs = message(src_state, sg.w, state.index_select(0, dst_idx))
@@ -625,6 +664,8 @@ def _run_dense(spec, sg, init_state, max_iters, ax, timeline):
                               spec.identity)
 
     def one_iter(state):
+        if csr is not None and timeline is not None:
+            timeline.kernel_supersteps += 1
         full = _all_gather(state, ax.model_group, ax.n_model) if sharded \
             else state
         if by_column:

@@ -69,10 +69,10 @@
 #include <cstdint>
 #include <type_traits>
 
-// The file compiles whole, or in three parts that link into one library
-// (-DSUPERSTEP_PART=1, 2, 3; ops.py builds them at once): the 1-D entry,
-// the batched entry with its kernels on int32 state, its kernels on
-// float32 state.
+// The file compiles whole, or in four parts that link into one library
+// (-DSUPERSTEP_PART=1, 2, 3, 4; ops.py builds them at once): the 1-D
+// entry, the batched entry with its kernels on int32 state, its kernels on
+// float32 state, and the CSR entry of the dense superstep.
 #ifndef SUPERSTEP_PART
 #define SUPERSTEP_PART 0
 #endif
@@ -1259,3 +1259,366 @@ extern "C" int pregel_superstep_batched(
   return static_cast<int>(err);
 }
 #endif  // SUPERSTEP_HAS(2)
+
+// ---------------------------------------------------------------------------
+// The dense superstep over the destination-sorted edge list, read as a CSR
+// (part 4):
+//
+//     agg[v] = reduce_{rowptr[v] <= e < rowptr[v+1]} ( op,
+//                                                  message(x[src[e]], w[e]) )
+//
+// min or max, and the identity `fill` where v has no in-edge.  This is
+// core/pregel.py's dense path (gather, message, segment-combine) in one
+// pass, with no mask, no [E] intermediate and no int64 segment index; it
+// replaces no TPU kernel (the reference runs that path as jnp, and its
+// Pallas kernel is the ELL entry above).  Plain version:
+// ref.py:csr_superstep_plain; wrapper: ops.py:csr_superstep; the row
+// offsets and the tile table come from ops.py:csr_layout, built once a
+// graph.
+//
+// What bounds it on the H100: bytes.  Each edge's 4-byte source id (and
+// its 4-byte weight for the programs that read one) once, the row offsets
+// and the output once: at graph500 scale 21 (6.35e7 edges) 0.27 GB for
+// BFS, 0.53 GB for SSSP.  x (4 B a vertex, 8 MB there) is gathered once
+// an edge at random; it stays in the 50 MB L2.
+//
+// Design: an equal share of the work for every block whatever the rows'
+// degrees (power-law graphs hold rows of 1e5 edges beside a majority
+// under 32), and nothing written but the output.
+//   * The work is the merge of the row ends with the edges (Merrill and
+//     Garland's merge-path CSR SpMV): kCsrTile items, row ends and edges
+//     together, a block.  The (row, edge) coordinate where each tile
+//     starts is precomputed with the row offsets (the tile table), so a
+//     block reads its range in two loads; a thread finds its own start
+//     inside the tile by a binary search over the tile's row offsets in
+//     shared memory.
+//   * A block reads its rows' offsets, then its edges' ids (and weights)
+//     as 16-byte evict-first loads (__ldcs), all of a thread's gathers of
+//     x in flight together, and keeps each edge's message in shared
+//     memory in edge order.  src and w are 16-byte aligned and hold a
+//     multiple of 4 edges (the partition pads its shards to 256 edges);
+//     the entry takes nothing else.
+//   * A thread walks kCsrItems items in registers: an edge combines its
+//     message into the running value, a row end writes the row out and
+//     restarts (the identity for a row without edges).  The value open at
+//     each thread's end is carried to the threads after it by a segmented
+//     scan over the block (warp shuffles, then the warps' totals), and
+//     combined into the row that thread closes first, which waits in a
+//     register until then.
+//   * A row cut by a tile boundary is merged with an atomic min or max:
+//     a compare-and-swap loop over the same combine for float32 (NaN
+//     propagating, as torch.amin/amax), atomicMin/atomicMax for int32.
+//     A first launch sets exactly those rows to the monoid's neutral; the
+//     tile that closes the row and each tile that carries part of it merge
+//     into it.  min and max select among the plain version's values in
+//     any order, so the result is bit-identical to it and to the dense
+//     path's scatter_reduce.
+//   * Padding edges (dst = V) lie past rowptr[V] and are never read; ids
+//     are clamped into [0, Vx).  Nothing is allocated: the wrapper passes
+//     the output, the two launches go to the caller's stream, the entry
+//     point returns cudaGetLastError().
+
+#if SUPERSTEP_HAS(4)
+
+namespace {
+
+constexpr int kCsrThreads = 256;
+constexpr int kCsrItems = 8;                          // items a thread
+constexpr int kCsrTile = kCsrThreads * kCsrItems;     // items a block
+// 4-edge groups a thread loads at most (a tile's edges may start
+// mid-group)
+constexpr int kCsrGroups = (kCsrTile / 4 + 1 + kCsrThreads - 1) / kCsrThreads;
+
+// int32 only for program 0 on int32 state, float32 otherwise (the ELL
+// entry's typing without a reduced-precision channel)
+template <typename TIn, int PROG>
+using CsrAcc = typename std::conditional<PROG == SRC && std::is_same<TIn, int>::value,
+                                         int, float>::type;
+
+__device__ __forceinline__ int clamp_csr(int id, int Vx) {
+  return id < 0 ? 0 : (id >= Vx ? Vx - 1 : id);
+}
+
+template <int OP>
+__device__ __forceinline__ void atomic_merge(int* p, int v) {
+  if constexpr (OP == MIN) {
+    atomicMin(p, v);
+  } else {
+    atomicMax(p, v);
+  }
+}
+
+template <int OP>
+__device__ __forceinline__ void atomic_merge(float* p, float v) {
+  unsigned* a = reinterpret_cast<unsigned*>(p);
+  unsigned old = *reinterpret_cast<volatile unsigned*>(a);
+  // values only ever move towards the combine's result, so a value that
+  // does not change `old` changes no later one either
+  while (true) {
+    const unsigned nv = __float_as_uint(combine<OP>(__uint_as_float(old), v));
+    if (nv == old) return;
+    const unsigned seen = atomicCAS(a, old, nv);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+template <typename A>
+struct CsrShared {
+  int rp[kCsrTile + 1];      // rowptr[i0 .. i1]
+  A msg[kCsrTile];           // the tile's messages, in edge order
+  A warp_val[kCsrThreads / 32];
+  int warp_flag[kCsrThreads / 32];
+};
+
+// The rows that a tile boundary cuts (a tile starts inside them): the
+// monoid's neutral, before the superstep merges into them.
+template <typename A, int OP>
+__global__ void csr_cut_rows_kernel(const int* __restrict__ rowptr,
+                                    const int2* __restrict__ tiles,
+                                    A* __restrict__ out, long long n_tiles,
+                                    int V) {
+  const long long t = 1 + blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (t >= n_tiles) return;
+  const int2 c = tiles[t];
+  if (c.x < V && __ldg(rowptr + c.x) < c.y) out[c.x] = neutral<OP, A>();
+}
+
+template <typename TIn, int PROG, int OP>
+__global__ void __launch_bounds__(kCsrThreads) csr_superstep_kernel(
+    const int* __restrict__ rowptr, const int2* __restrict__ tiles,
+    const int* __restrict__ src, const float* __restrict__ w,
+    const TIn* __restrict__ x, CsrAcc<TIn, PROG>* __restrict__ out, int V,
+    int Vx, CsrAcc<TIn, PROG> fill) {
+  using A = CsrAcc<TIn, PROG>;
+  constexpr bool kReadsW = PROG == SRC_PLUS_W || PROG == SRC_TIMES_W;
+  __shared__ CsrShared<A> sh;
+  const int tid = threadIdx.x;
+  const int2 c0 = tiles[blockIdx.x];
+  const int2 c1 = tiles[blockIdx.x + 1];
+  const int i0 = c0.x, j0 = c0.y, j1 = c1.y;
+  const int n_rows = c1.x - i0;       // row ends in the tile
+  const int n_edges = j1 - j0;        // edges in the tile
+
+  for (int k = tid; k <= n_rows; k += kCsrThreads) {
+    sh.rp[k] = __ldg(rowptr + i0 + k);
+  }
+  const int base = j0 & ~3;
+  int4 ids[kCsrGroups];
+  float4 ws[kCsrGroups];
+#pragma unroll
+  for (int u = 0; u < kCsrGroups; ++u) {
+    const int p = base + 4 * (tid + u * kCsrThreads);
+    ids[u] = make_int4(0, 0, 0, 0);
+    ws[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < j1) {
+      ids[u] = __ldcs(reinterpret_cast<const int4*>(src + p));
+      if constexpr (kReadsW) {
+        ws[u] = __ldcs(reinterpret_cast<const float4*>(w + p));
+      }
+    }
+  }
+  TIn xs[kCsrGroups][4];
+#pragma unroll
+  for (int u = 0; u < kCsrGroups; ++u) {
+    const int p = base + 4 * (tid + u * kCsrThreads);
+    const int id4[4] = {ids[u].x, ids[u].y, ids[u].z, ids[u].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (p < j1 && p + c >= j0 && p + c < j1) {
+        xs[u][c] = __ldg(x + clamp_csr(id4[c], Vx));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kCsrGroups; ++u) {
+    const int p = base + 4 * (tid + u * kCsrThreads);
+    float w4[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (kReadsW) {
+      if (p < j1) {
+        w4[0] = ws[u].x; w4[1] = ws[u].y; w4[2] = ws[u].z; w4[3] = ws[u].w;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (p < j1 && p + c >= j0 && p + c < j1) {
+        sh.msg[p + c - j0] = static_cast<A>(edge_program<PROG>(xs[u][c], w4[c]));
+      }
+    }
+  }
+  __syncthreads();
+
+  // this thread's start on the tile's merge path: r rows closed, e edges
+  // taken (row r's end is rp[r + 1] - j0 in tile edges)
+  const int items = n_rows + n_edges;
+  const int d = min(tid * kCsrItems, items);
+  int lo = max(0, d - n_edges), hi = min(d, n_rows);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sh.rp[mid + 1] - j0 + mid < d) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  // rows closed after a thread's first have all their edges in the
+  // thread's walk: they go out at once (the identity where empty)
+  const int first = lo;               // the row this thread closes first
+  int r = lo, e = d - lo;
+  const int mine = min(kCsrItems, items - d);
+  A acc = neutral<OP, A>();
+  A first_val = acc;
+  bool closed = false;
+#pragma unroll
+  for (int k = 0; k < kCsrItems; ++k) {
+    if (k < mine) {
+      if (r == n_rows || e < sh.rp[r + 1] - j0) {
+        acc = combine<OP>(acc, sh.msg[e]);
+        ++e;
+      } else {
+        if (closed) {
+          out[i0 + r] = sh.rp[r] == sh.rp[r + 1] ? fill : acc;
+        } else {
+          first_val = acc;
+          closed = true;
+        }
+        acc = neutral<OP, A>();
+        ++r;
+      }
+    }
+  }
+
+  // segmented inclusive scan of the open values, a segment starting at
+  // each thread that closed a row: (f, v) after (fp, vp) is
+  // (f | fp, f ? v : combine(vp, v))
+  const int lane = tid & 31, warp = tid >> 5;
+  int f = closed;
+  A v = acc;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const A vp = __shfl_up_sync(0xffffffffu, v, s);
+    const int fp = __shfl_up_sync(0xffffffffu, f, s);
+    if (lane >= s) {
+      if (!f) v = combine<OP>(vp, v);
+      f |= fp;
+    }
+  }
+  if (lane == 31) {
+    sh.warp_val[warp] = v;
+    sh.warp_flag[warp] = f;
+  }
+  __syncthreads();
+  A pv = neutral<OP, A>();            // the warps before this one
+  for (int k = 0; k < warp; ++k) {
+    pv = sh.warp_flag[k] ? sh.warp_val[k] : combine<OP>(pv, sh.warp_val[k]);
+  }
+  if (!f) v = combine<OP>(pv, v);
+  A carry = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) carry = pv;
+  // a thread's first row takes what the threads before it carry
+  if (closed) {
+    const int b = sh.rp[first];
+    if (b == sh.rp[first + 1]) {
+      out[i0 + first] = fill;
+    } else if (first == 0 && b < j0) {      // begun in an earlier tile
+      atomic_merge<OP>(out + i0, combine<OP>(carry, first_val));
+    } else {
+      out[i0 + first] = combine<OP>(carry, first_val);
+    }
+  }
+  // the row open at the tile's end, if the tile holds some of its edges
+  if (tid == kCsrThreads - 1 && i0 + n_rows < V &&
+      j1 > max(j0, sh.rp[n_rows])) {
+    atomic_merge<OP>(out + i0 + n_rows, v);
+  }
+}
+
+struct CsrArgs {
+  const int* rowptr;
+  const int2* tiles;
+  long long n_tiles;
+  const int* src;
+  const float* w;
+  const void* x;
+  void* out;
+  int V;
+  int Vx;
+  double fill;
+  cudaStream_t stream;
+};
+
+template <typename TIn, int PROG, int OP>
+cudaError_t launch_csr(const CsrArgs& a) {
+  using A = CsrAcc<TIn, PROG>;
+  A* out = static_cast<A*>(a.out);
+  if (a.n_tiles > 1) {
+    const long long cuts = a.n_tiles - 1;
+    csr_cut_rows_kernel<A, OP>
+        <<<static_cast<unsigned>((cuts + 255) / 256), 256, 0, a.stream>>>(
+            a.rowptr, a.tiles, out, a.n_tiles, a.V);
+  }
+  csr_superstep_kernel<TIn, PROG, OP>
+      <<<static_cast<unsigned>(a.n_tiles), kCsrThreads, 0, a.stream>>>(
+          a.rowptr, a.tiles, a.src, a.w, static_cast<const TIn*>(a.x), out,
+          a.V, a.Vx, static_cast<A>(a.fill));
+  return cudaGetLastError();
+}
+
+template <typename TIn, int PROG>
+cudaError_t csr_by_op(int op, const CsrArgs& a) {
+  switch (op) {
+    case MIN: return launch_csr<TIn, PROG, MIN>(a);
+    case MAX: return launch_csr<TIn, PROG, MAX>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TIn>
+cudaError_t csr_by_prog(int program, int op, const CsrArgs& a) {
+  switch (program) {
+    case SRC: return csr_by_op<TIn, SRC>(op, a);
+    case SRC_PLUS_ONE: return csr_by_op<TIn, SRC_PLUS_ONE>(op, a);
+    case SRC_PLUS_W: return csr_by_op<TIn, SRC_PLUS_W>(op, a);
+    case SRC_TIMES_W: return csr_by_op<TIn, SRC_TIMES_W>(op, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes).  rowptr is [V + 1] int32, tiles
+// [n_tiles + 1, 2] int32 (ops.py:csr_layout, for kCsrTile items a tile),
+// src and w the n_src edges (src int32, w float32, both 16-byte aligned,
+// n_src a multiple of 4; edges past rowptr[V] are not read), x [Vx] int32
+// or float32, out [V] (int32 for program 0 on int32 state, else float32).
+// op is min or max.  Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for what this file does not take.
+extern "C" int pregel_superstep_csr(const void* rowptr, const void* tiles,
+                                    long long n_tiles, const void* src,
+                                    long long n_src, const void* w,
+                                    const void* x, void* out, long long V,
+                                    long long Vx, int state_type, int program,
+                                    int op, double fill, void* stream) {
+  if (V <= 0) return 0;
+  if (V > INT_MAX || Vx < 1 || Vx > INT_MAX || n_tiles < 1 ||
+      n_tiles > INT_MAX || n_src < 0 || n_src % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(tiles) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const CsrArgs a{static_cast<const int*>(rowptr),
+                  static_cast<const int2*>(tiles), n_tiles,
+                  static_cast<const int*>(src), static_cast<const float*>(w),
+                  x, out, static_cast<int>(V), static_cast<int>(Vx), fill,
+                  static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  switch (state_type) {
+    case I32: err = csr_by_prog<int>(program, op, a); break;
+    case F32: err = csr_by_prog<float>(program, op, a); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+#endif  // SUPERSTEP_HAS(4)

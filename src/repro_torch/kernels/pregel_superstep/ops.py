@@ -10,6 +10,12 @@ programs, an unsupported dtype, state with more dims) raises
 ``ValueError``: nothing falls back.  Callers that want the plain version
 on the card (parity runs) call ``superstep_plain`` themselves.
 
+``csr_superstep`` is the same superstep over the destination-sorted edge
+list read as a CSR (the dense path's gather, message and combine in one
+pass): ``csr_superstep_plain`` on the CPU, ``pregel_superstep_csr`` on
+the card, for 1-D int32 or float32 state under min or max.  Its row
+offsets and tile table (``csr_layout``) are built once a graph.
+
 The kernel cannot inline an arbitrary Python edge program the way the
 reference's Pallas kernel inlines a jnp callable, so this module exports
 the four compiled programs as module-level functions.  Vertex programs
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pregel_superstep.ref import (
-    as_dtype, fill_value, superstep_plain)
+    as_dtype, csr_superstep_plain, fill_value, superstep_plain)
 
 #: Launches of the CUDA kernels (both entries), counted where the wrapper
 #: launches them (under a lock: the service's worker threads may launch
@@ -37,6 +43,9 @@ from repro_torch.kernels.pregel_superstep.ref import (
 KERNEL_LAUNCHES = 0
 #: Of those, the launches of the ``[Vx, B]`` entry.
 BATCHED_LAUNCHES = 0
+#: Calls of the CSR entry (``pregel_superstep_csr``), not in the two
+#: counts above.
+CSR_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -93,11 +102,11 @@ def library():
     """The built kernel library (compiled on first call)."""
     global _LIB
     if _LIB is None:
-        # the source's three parts (1-D entry, batched on int32 and on
-        # float32 state) compile at once
+        # the source's four parts (1-D entry, batched on int32 and on
+        # float32 state, CSR entry) compile at once
         lib = _build.load("pregel_superstep", sorted(CSRC.glob("*.cu")),
                           parts=[(f"-DSUPERSTEP_PART={p}",)
-                                 for p in (1, 2, 3)])
+                                 for p in (1, 2, 3, 4)])
         fn = lib.pregel_superstep
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
@@ -108,6 +117,13 @@ def library():
         fb.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4
                        + [ctypes.c_int] * 4 + [ctypes.c_double]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fc = lib.pregel_superstep_csr
+        fc.restype = ctypes.c_int
+        fc.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * 3
+                       + [ctypes.c_double, ctypes.c_void_p])
         _LIB = lib
     return _LIB
 
@@ -270,4 +286,116 @@ def fused_superstep(nbr, mask, w, x, *, message, op: str, identity,
     with _COUNT_LOCK:
         KERNEL_LAUNCHES += 1
         BATCHED_LAUNCHES += batched
+    return out
+
+
+#: items (row ends and edges together) a block of the CSR entry takes
+#: (``kCsrTile``)
+CSR_TILE = 2048
+
+
+class CSRLayout(NamedTuple):
+    """A destination-sorted edge list read as a CSR, for ``csr_superstep``:
+    ``rowptr`` [V + 1] int32 (row v's edges are ``rowptr[v]`` to
+    ``rowptr[v + 1]``; edges past ``rowptr[V]`` are padding), and
+    ``tiles`` [n_tiles + 1, 2] int32, the (row, edge) at which each block's
+    ``CSR_TILE`` items of the merge of row ends and edges start."""
+    rowptr: torch.Tensor
+    tiles: torch.Tensor
+
+
+def csr_layout(dst: torch.Tensor, n_vertices: int):
+    """The CSR of edges whose destinations ``dst`` (int32, padding = V)
+    are sorted, on ``dst``'s device; None where they are not sorted or
+    the merge of V row ends and the edges has 2^31 items or more."""
+    V = int(n_vertices)
+    dev = dst.device
+    if dst.numel() > 1 and bool((dst[1:] < dst[:-1]).any()):
+        return None
+    rowptr = torch.searchsorted(
+        dst.contiguous(), torch.arange(V + 1, dtype=dst.dtype, device=dev),
+        out_int32=True)
+    total = V + int(rowptr[-1])
+    if total >= 2 ** 31:
+        return None
+    # tile t starts at diagonal d = t * CSR_TILE of the merge path: the row
+    # ends taken there are those of rows i with rowptr[i + 1] + i < d
+    n_tiles = max(1, -(-total // CSR_TILE))
+    diag = (torch.arange(n_tiles + 1, device=dev) * CSR_TILE).clamp_(
+        max=total)
+    key = rowptr[1:].long() + torch.arange(V, device=dev)
+    rows = torch.searchsorted(key, diag)
+    tiles = torch.stack([rows, diag - rows], dim=1).to(torch.int32)
+    return CSRLayout(rowptr, tiles.contiguous())
+
+
+def csr_superstep(layout: CSRLayout, src, w, x, *, message, op: str,
+                  identity):
+    """One dense superstep through the CSR: agg[v] = op over v's in-edges
+    e of message(x[src[e]], w[e]), ``identity`` where v has none.
+
+    ``x`` is [Vx] int32 or float32 with a compiled edge program, ``op``
+    min or max; the result is [V] (int32 for ``msg_src`` on int32 state,
+    else float32).  CPU tensors: the plain version.  CUDA tensors: the
+    hand-written kernel, bit-identical to the plain version, or
+    ``ValueError`` (among others for ``src`` and ``w`` not 16-byte aligned
+    or not a multiple of 4 edges: the partition's shards always are).  The
+    output is the one allocation.
+    """
+    global CSR_LAUNCHES
+    if x.device.type == "cpu":
+        return csr_superstep_plain(layout.rowptr, src, w, x, message=message,
+                                   op=op, identity=identity)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"csr_superstep: unsupported device {dev}")
+    if not compiled(message):
+        raise ValueError(
+            f"csr_superstep: {getattr(message, '__name__', message)!r} is "
+            "not a compiled edge program")
+    program = base_program(message)
+    if op not in ("min", "max"):
+        raise ValueError(f"csr_superstep: op must be min or max, got {op!r}")
+    if x.dim() != 1 or x.dtype not in (torch.int32, torch.float32):
+        raise ValueError("csr_superstep: the kernel takes 1-D int32 or "
+                         f"float32 state; got {tuple(x.shape)} {x.dtype}")
+    rowptr, tiles = layout
+    V = rowptr.shape[0] - 1
+    n = src.shape[0]
+    if src.dtype != torch.int32 or src.dim() != 1:
+        raise ValueError("csr_superstep: src must be [n] int32")
+    if w.dtype != torch.float32 or tuple(w.shape) != (n,):
+        raise ValueError("csr_superstep: w must be [n] float32")
+    if rowptr.dtype != torch.int32 or tiles.dtype != torch.int32 \
+            or tiles.dim() != 2 or tiles.shape[1] != 2:
+        raise ValueError("csr_superstep: the layout must come from "
+                         "csr_layout")
+    for name, t in (("rowptr", rowptr), ("tiles", tiles), ("src", src),
+                    ("w", w), ("x", x)):
+        if t.device != dev:
+            raise ValueError(f"csr_superstep: {name} is on {t.device}, "
+                             f"x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"csr_superstep: {name} must be contiguous")
+    if n % 4 or src.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("csr_superstep: src and w must be 16-byte aligned "
+                         "and hold a multiple of 4 edges")
+    out_dtype = kernel_out_dtype(x, program)
+    out = torch.empty((V,), dtype=out_dtype, device=dev)
+    if V == 0:
+        return out
+    if x.shape[0] == 0:
+        raise ValueError("csr_superstep: empty gather source")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = library().pregel_superstep_csr(
+            rowptr.data_ptr(), tiles.data_ptr(), tiles.shape[0] - 1,
+            src.data_ptr(), n, w.data_ptr(), x.data_ptr(), out.data_ptr(),
+            V, x.shape[0], _DTYPES[x.dtype], EDGE_PROGRAMS[program],
+            _OPS[op], float(identity), stream)
+    if rc != 0:
+        raise RuntimeError(f"pregel_superstep_csr launch failed: CUDA error "
+                           f"{rc}")
+    with _COUNT_LOCK:
+        CSR_LAUNCHES += 1
     return out

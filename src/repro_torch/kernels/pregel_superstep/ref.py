@@ -23,6 +23,11 @@ The wrapper (``ops.fused_superstep``) runs this for tensors on the CPU,
 ``[Vx]`` and ``[Vx, B]`` state alike; ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold both CUDA entries (``pregel_superstep``
 and ``pregel_superstep_batched``) against it on the card.
+
+``csr_superstep_plain`` is the plain version of the third entry
+(``pregel_superstep_csr``): the same superstep over the destination-sorted
+edge list read as a CSR, which is the dense path's gather, message and
+segment-combine.
 """
 from __future__ import annotations
 
@@ -67,3 +72,26 @@ def superstep_plain(nbr, mask, w, x, *, message, op: str, identity,
     if op == "max":
         return contrib.amax(dim=1)
     raise ValueError(f"unknown op {op!r}")
+
+
+def csr_superstep_plain(rowptr, src, w, x, *, message, op: str, identity):
+    """agg[v] = reduce over the in-edges e of v (``rowptr[v] <= e <
+    rowptr[v + 1]``) of message(x[src[e]], w[e]); ``identity`` where v has
+    none.  min/max only; edges past ``rowptr[V]`` (padding) are not read.
+
+    rowptr : [V + 1] int32 row offsets of the destination-sorted edges
+    src, w : [n] int32 source ids and float32 weights, n >= rowptr[V]
+    x      : [Vx] gather source (ids clamped into [0, Vx))
+    """
+    if op not in ("min", "max"):
+        raise ValueError(f"csr_superstep_plain: op must be min or max, "
+                         f"got {op!r}")
+    V = rowptr.shape[0] - 1
+    nnz = int(rowptr[-1])
+    seg = torch.repeat_interleave(
+        torch.arange(V, device=rowptr.device), rowptr.diff().long(),
+        output_size=nnz)
+    msgs = message(x[src[:nnz].clamp(0, x.shape[0] - 1).long()], w[:nnz])
+    out = torch.full((V,), identity, dtype=msgs.dtype, device=msgs.device)
+    return out.scatter_reduce_(0, seg, msgs, reduce="a" + op,
+                               include_self=False)

@@ -342,8 +342,9 @@ def test_default_device_is_the_card():
     ("sssp", {"source": 11}),
 ])
 def test_engine_variants_on_the_card_match_the_cpu(algo, params):
-    """Every variant on cuda:0 (fused = the CUDA kernel, once per
-    superstep) returns the CPU run's bytes and iteration count."""
+    """Every variant on cuda:0 (fused = the CUDA kernel's ELL entry,
+    once per superstep; dense = its CSR entry) returns the CPU run's
+    bytes and iteration count."""
     want = LocalEngine(_graph("cpu"), device="cpu").run(algo, params,
                                                         variant="dense")
     eng = LocalEngine(_graph("cuda"))
@@ -420,6 +421,167 @@ def test_plain_fused_on_the_card_matches_the_kernel(algo, params):
     assert torch.equal(plain.value.view(torch.uint8),
                        kern.value.view(torch.uint8))
     assert plain.iterations == kern.iterations
+
+
+# ------------------------------------------- pregel_superstep's CSR entry
+
+def _csr_case(kind, seed, off=0):
+    """Sorted destinations (padding = V) of ``kind``, with src, w and dst
+    as views ``off`` elements into their arrays (off = 1: src and w not
+    16-byte aligned), on the card."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty_rows":
+        V, n = 5000, 3000
+        dst = np.sort(rng.integers(0, V // 7, n) * 7)
+    elif kind == "hub":
+        V, n = 3000, 5 * ops.CSR_TILE + 4000
+        dst = np.sort(np.concatenate([np.full(5 * ops.CSR_TILE, 1234),
+                                      rng.integers(0, V, 4000)]))
+    elif kind == "no_edges":
+        V, n, dst = 700, 0, np.zeros(0, np.int64)
+    else:                       # power-law rows, many tiles
+        V, n = 1 << 15, 1 << 20
+        dst = np.sort(np.minimum(rng.zipf(1.3, n), V) - 1)
+    pad = 4 + off
+    dst = np.concatenate([dst, np.full(pad, V)]).astype(np.int32)
+    src = rng.integers(-2, V + 3, n + pad).astype(np.int32)   # clamped
+    w = rng.uniform(0.1, 2.0, n + pad).astype(np.float32)
+    src, w, dst = (torch.from_numpy(a).cuda()[off:] for a in (src, w, dst))
+    return V, src, w, ops.csr_layout(dst, V)
+
+
+@pytest.mark.parametrize("kind", ["empty_rows", "hub", "no_edges", "zipf"])
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("msg,x_kind,op,ident", [
+    (ops.msg_src, "ids", "min", IMAX), (ops.msg_src, "ids", "max", -1),
+    (ops.msg_src, "dist", "min", INF), (ops.msg_src_plus_one, "dist",
+                                        "min", INF),
+    (ops.msg_src_plus_w, "dist", "min", INF),
+    (ops.msg_src_plus_w, "dist", "max", -INF),
+    (ops.msg_src_times_w, "vals", "max", -3.0),
+    (ops.msg_src_plus_one, "ids", "min", INF),
+])
+def test_csr_kernel_matches_plain(kind, off, msg, x_kind, op, ident):
+    """Bit for bit against the plain version: rows without in-edges,
+    rows cut by tiles, ids past either end, padding; the output the one
+    allocation, and no ELL launch.  src and w off 16-byte alignment are
+    refused with ``ValueError`` and launch nothing."""
+    V, src, w, lay = _csr_case(kind, 5, off)
+    rng = np.random.default_rng(9)
+    if x_kind == "ids":
+        x = torch.from_numpy(rng.permutation(V).astype(np.int32)).cuda()
+    else:
+        x = torch.from_numpy(rng.integers(0, 40, V).astype(np.float32))
+        x[torch.from_numpy(rng.random(V) < 0.3)] = INF
+        x = x.cuda()
+    want = ops.csr_superstep(
+        ops.CSRLayout(lay.rowptr.cpu(), lay.tiles.cpu()), src.cpu(),
+        w.cpu(), x.cpu(), message=msg, op=op, identity=ident)
+    before, ell = ops.CSR_LAUNCHES, ops.KERNEL_LAUNCHES
+    if off:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.csr_superstep(lay, src, w, x, message=msg, op=op,
+                              identity=ident)
+        assert ops.CSR_LAUNCHES == before and ops.KERNEL_LAUNCHES == ell
+        return
+    got = ops.csr_superstep(lay, src, w, x, message=msg, op=op,
+                            identity=ident)
+    torch.cuda.synchronize()
+    assert ops.CSR_LAUNCHES == before + 1 and ops.KERNEL_LAUNCHES == ell
+    assert got.dtype == want.dtype and got.shape == (V,)
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+def test_csr_kernel_propagates_nan_and_rejects_what_it_does_not_take():
+    V, src, w, lay = _csr_case("hub", 3)
+    x = torch.full((V,), 5.0, device="cuda")
+    x[src[:7].long().clamp(0, V - 1)] = float("nan")
+    for op in ("min", "max"):
+        got = ops.csr_superstep(lay, src, w, x, message=ops.msg_src_plus_w,
+                                op=op, identity=INF)
+        want = ops.csr_superstep(
+            ops.CSRLayout(lay.rowptr.cpu(), lay.tiles.cpu()), src.cpu(),
+            w.cpu(), x.cpu(), message=ops.msg_src_plus_w, op=op,
+            identity=INF)
+        assert torch.equal(got.isnan().cpu(), want.isnan())
+        keep = ~want.isnan()
+        assert torch.equal(got.cpu()[keep], want[keep])
+    with pytest.raises(ValueError, match="min or max"):
+        ops.csr_superstep(lay, src, w, x, message=ops.msg_src, op="sum",
+                          identity=0.0)
+    with pytest.raises(ValueError, match="compiled edge program"):
+        ops.csr_superstep(lay, src, w, x, message=lambda a, b: a,
+                          op="min", identity=INF)
+    with pytest.raises(ValueError, match="1-D int32 or float32"):
+        ops.csr_superstep(lay, src, w, x.double(), message=ops.msg_src,
+                          op="min", identity=INF)
+
+
+def _kronecker(scale, seed=4):
+    """A Graph 500 Kronecker graph (edge factor 16) with its labels
+    permuted, symmetrized, weighted, on the card."""
+    src, dst, n = synthetic.rmat_graph(scale, 16, seed=seed)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    w = rng.uniform(0.0, 1.0, src.size)
+    return G.build_coo(perm[src], perm[dst], n, w=w, symmetrize=True,
+                       device="cuda")
+
+
+@pytest.fixture(scope="module")
+def kron18():
+    return _kronecker(18)
+
+
+@pytest.mark.parametrize("algo,params", [
+    ("bfs", {"sources": (0,)}), ("bfs", {"sources": (12345, 7)}),
+    ("sssp", {"source": 0}), ("sssp", {"source": 99999}),
+    ("connected_components", {}),
+])
+def test_dense_superstep_through_the_csr_entry(kron18, algo, params):
+    """The dense variant on the card runs each superstep through the CSR
+    entry (one launch and one ``kernel_supersteps`` a superstep, no ELL
+    launch) and returns the bytes and iterations of the plain engine
+    (``use_kernels=False``), whose dense run keeps the PyTorch path and
+    launches nothing."""
+    eng = LocalEngine(kron18)
+    csr, ell = ops.CSR_LAUNCHES, ops.KERNEL_LAUNCHES
+    got = eng.run(algo, params, variant="dense", profile=True)
+    torch.cuda.synchronize()
+    assert got.meta["realized_variant"] == "dense"
+    assert ops.CSR_LAUNCHES - csr == got.iterations
+    assert got.meta["timeline"]["kernel_supersteps"] == got.iterations
+    assert ops.KERNEL_LAUNCHES == ell
+    want = LocalEngine(kron18, use_kernels=False).run(
+        algo, params, variant="dense", profile=True)
+    torch.cuda.synchronize()
+    assert want.meta["realized_variant"] == "dense"
+    assert want.meta["timeline"]["kernel_supersteps"] == 0
+    assert ops.KERNEL_LAUNCHES == ell
+    assert ops.CSR_LAUNCHES - csr == got.iterations
+    assert got.iterations == want.iterations
+    assert torch.equal(got.value.view(torch.uint8),
+                       want.value.view(torch.uint8))
+
+
+def test_dense_csr_route_allocates_nothing_new_after_warm_up(kron18):
+    """After a BFS and an SSSP query, 20 more dense queries take every
+    block from the caching allocator: no device segment is allocated."""
+    eng = LocalEngine(kron18)
+    for algo, p in (("bfs", {"sources": (1,)}), ("sssp", {"source": 1})):
+        eng.run(algo, p, variant="dense")
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    segments = stats["segment.all.allocated"]
+    launches = ops.CSR_LAUNCHES
+    for k in range(10):
+        for algo, p in (("bfs", {"sources": (1000 * k + 3,)}),
+                        ("sssp", {"source": 1000 * k + 5})):
+            r = eng.run(algo, p, variant="dense")
+            del r
+    torch.cuda.synchronize()
+    assert ops.CSR_LAUNCHES > launches
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
 
 
 # ------------------------------------------------------------ ell_intersect

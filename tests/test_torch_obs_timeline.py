@@ -190,7 +190,8 @@ def test_host_syncs_are_exact(kind, variant, algo, params):
     want = n if variant != "frontier" else 1 + 2 * n
     tl = r.meta["timeline"]
     assert tl["host_syncs"] == want
-    assert set(tl) == {"init_wall_s", "host_syncs"}
+    assert set(tl) == {"init_wall_s", "host_syncs", "kernel_supersteps"}
+    assert tl["kernel_supersteps"] == 0        # the CPU runs no kernel
     assert tl["init_wall_s"] >= 0
     assert "loop_span_ms" not in tl            # no CUDA device: no figure
 
@@ -200,7 +201,7 @@ def test_timeline_rides_on_the_execute_span_and_not_in_the_cache():
     a, = _drained_bfs(svc, roots=(3,))
     ex = svc.tracer.trace(a.ticket_id).find("execute")
     tl = ex.attrs["timeline"]
-    assert set(tl) == {"init_wall_s", "host_syncs"}
+    assert set(tl) == {"init_wall_s", "host_syncs", "kernel_supersteps"}
     assert svc.result(a).meta["timeline"]["host_syncs"] == tl["host_syncs"]
     assert "timeline" not in svc.explain(a)
     b = svc.submit("g", GraphQuery.bfs([3]))

@@ -315,18 +315,21 @@ def test_batched_geometry_vector_path_only_where_it_may_run():
 
 
 def test_source_builds_in_parts_that_cover_both_entries():
-    """The library compiles ``superstep.cu`` as three parts at once: the
+    """The library compiles ``superstep.cu`` as four parts at once: the
     1-D entry in part 1, the batched entry in part 2 with its int32
-    kernels, its float32 kernels in part 3; a change of parts is a new
-    library (the build's hash covers them)."""
+    kernels, its float32 kernels in part 3, the CSR entry in part 4; a
+    change of parts is a new library (the build's hash covers them)."""
     from repro_torch.kernels import _build
     src = (ops.CSRC / "superstep.cu").read_text()
     assert "#define SUPERSTEP_HAS(part) (SUPERSTEP_PART == 0 || " \
         "SUPERSTEP_PART == (part))" in src
     entry_1d = src.index('extern "C" int pregel_superstep(')
     entry_b = src.index('extern "C" int pregel_superstep_batched(')
+    entry_csr = src.index('extern "C" int pregel_superstep_csr(')
     assert src.rindex("#if SUPERSTEP_HAS(1)", 0, entry_1d) > \
         src.rindex("#endif", 0, entry_1d)
+    assert src.rindex("#if SUPERSTEP_HAS(4)", 0, entry_csr) > \
+        src.rindex("#endif", 0, entry_csr)
     assert src.rindex("#if SUPERSTEP_HAS(2)", 0, entry_b) > \
         src.rindex("#endif", 0, entry_b)
     for part, state in ((2, "int"), (3, "float")):
@@ -334,7 +337,7 @@ def test_source_builds_in_parts_that_cover_both_entries():
         assert src.rindex(f"#if SUPERSTEP_HAS({part})", 0, body) > \
             src.rindex("#endif", 0, body)
     sources = [ops.CSRC / "superstep.cu"]
-    parts = [(f"-DSUPERSTEP_PART={p}",) for p in (1, 2, 3)]
+    parts = [(f"-DSUPERSTEP_PART={p}",) for p in (1, 2, 3, 4)]
     assert _build._digest(sources, parts) == _build._digest(sources, parts)
     assert _build._digest(sources, parts) != _build._digest(sources)
     assert _build._digest(sources, parts[:2]) != \
